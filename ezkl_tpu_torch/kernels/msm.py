@@ -1,0 +1,217 @@
+"""Pippenger multi-scalar multiplication over BN254 G1 (port of the unfused
+`msm_multi` of `ezkl_tpu/kernels/msm.py:326-437`).
+
+The same pipeline as the JAX package's: signed window digits, a sort of the
+digits, a gather of the points into digit order, a blocked inclusive prefix
+scan of point adds, bucket sums read at the bucket boundaries (telescoped:
+sum_b b*S_b = B*T - sum_b E[s_b]), a fold of those, and a Horner combine over
+the windows. Every group operation is one elementwise point add (K3) or one
+doubling (K9). The reference walks the windows one group at a time
+(`default_group` = 1); a group only changes the batching, not the result, so
+here all C*W windows of a call ride every sequential scan, fold and Horner
+step as one batch.
+
+The result is a projective point; commitments decode it to affine, so the
+proof bytes do not depend on which MSM computed them.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..fieldmath import curve, limbs
+from ..fieldmath.curve import PointP
+from ..fieldmath.spec import bn254_fr, NWORDS
+
+_BLOCK = 32  # sequential steps per scan level
+
+
+def default_window_bits(n: int) -> int:
+    """Signed-digit window size minimizing n_windows * (linear work + bucket
+    work), with the per-point and per-bucket costs the JAX package fitted
+    (`msm.py:89-106`); kept so that c matches the reference."""
+    best_c, best_t = 2, float("inf")
+    for c in range(2, 21):
+        t = len(_signed_windows(c)) * (n * 60e-9 + (1 << (c - 1)) * 190e-9)
+        if t < best_t:
+            best_c, best_t = c, t
+    return best_c
+
+
+def extract_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
+    """(8, *batch) raw (non-Montgomery) scalar limbs -> (W, *batch) int64
+    window digits; window w holds bits [w*c, (w+1)*c)."""
+    W = -(-256 // c)
+    w = limbs._w(scalars)
+    w = torch.cat([w, torch.zeros_like(w[:1])], dim=0)
+    starts = torch.arange(W, device=w.device) * c
+    idx, r = starts // 32, (starts % 32).reshape((W,) + (1,) * (w.dim() - 1))
+    d = (w[idx] >> r) | ((w[idx + 1] & 0xFFFFF) << (32 - r))   # c <= 20
+    return d & ((1 << c) - 1)
+
+
+@functools.lru_cache(maxsize=32)
+def _signed_windows(c: int) -> range:
+    """Number of c-bit SIGNED windows covering any reduced Fr scalar (the
+    recoding carry out of the top window must vanish)."""
+    p = bn254_fr().modulus
+    W = -(-254 // c)
+    while ((p - 1) >> ((W - 1) * c)) + 1 > (1 << (c - 1)):
+        W += 1
+    return range(W)
+
+
+def extract_digits_signed(scalars: torch.Tensor, c: int):
+    """(8, *batch) raw Fr limbs -> (mags, negs), each (W, *batch):
+    scalar = sum_w (-1)^negs[w] * mags[w] * 2^(c*w), mags in [0, 2^(c-1)]."""
+    raw = extract_digits(scalars, c)
+    half, full = 1 << (c - 1), 1 << c
+    mags, negs = [], []
+    carry = torch.zeros_like(raw[0])
+    for w in _signed_windows(c):
+        d = (raw[w] if w < raw.shape[0] else torch.zeros_like(carry)) + carry
+        ng = d > half
+        mags.append(torch.where(ng, full - d, d))
+        negs.append(ng)
+        carry = ng.long()
+    return torch.stack(mags), torch.stack(negs)
+
+
+def _stack_points(pts, dim=-1) -> PointP:
+    return PointP(*(torch.stack([p[i] for p in pts], dim=dim) for i in range(3)))
+
+
+def _seq_inclusive(p: PointP) -> PointP:
+    """Inclusive prefix along the last axis, one point add per step."""
+    xs = p.map(lambda a: a.movedim(-1, 1).contiguous())
+    acc = curve.identity(p.batch_shape[:-1], p.device)
+    outs = []
+    for s in range(p.x.shape[-1]):
+        acc = curve.add(acc, xs.map(lambda a: a[:, s]))
+        outs.append(acc)
+    return _stack_points(outs)
+
+
+def prefix_scan_points(p: PointP) -> PointP:
+    """Inclusive prefix sum of points along the last batch axis: (m, BLOCK)
+    local scans, a recursive scan of the block totals, one combine add."""
+    n = p.x.shape[-1]
+    if n <= _BLOCK:
+        return _seq_inclusive(p)
+    assert n % _BLOCK == 0, "prefix_scan_points: need n % BLOCK == 0"
+    m = n // _BLOCK
+    local = _seq_inclusive(p.map(lambda a: a.reshape(a.shape[:-1] + (m, _BLOCK))))
+    tot_pref = prefix_scan_points(local.map(lambda a: a[..., -1]))
+    offs = tot_pref.map(lambda a: torch.cat([torch.zeros_like(a[..., :1]), a[..., :-1]], -1))
+    first = (torch.arange(m, device=p.device) == 0).expand(offs.batch_shape)
+    offs = curve.select_point(first, curve.identity(offs.batch_shape, p.device), offs)
+    combined = curve.add(local, offs.map(lambda a: a[..., None].expand(local.x.shape)))
+    return combined.map(lambda a: a.reshape(a.shape[:-2] + (n,)))
+
+
+def fold_points(p: PointP) -> PointP:
+    """Sum of points along the last axis (any length): blocked accumulation
+    of width n/BLOCK, then one short sequential fold."""
+    n = p.x.shape[-1]
+    while n > _BLOCK:
+        m = -(-n // _BLOCK)
+        if m * _BLOCK != n:
+            idp = curve.identity(p.batch_shape[:-1] + (m * _BLOCK - n,), p.device)
+            p = PointP(*(torch.cat([a, b], dim=-1) for a, b in zip(p, idp)))
+        xs = p.map(lambda a: a.reshape(a.shape[:-1] + (m, _BLOCK)).movedim(-1, 1).contiguous())
+        acc = curve.identity(xs.x.shape[2:], p.device)
+        for s in range(_BLOCK):
+            acc = curve.add(acc, xs.map(lambda a: a[:, s]))
+        p, n = acc, m
+    xs = p.map(lambda a: a.movedim(-1, 1).contiguous())
+    acc = curve.identity(p.batch_shape[:-1], p.device)
+    for s in range(n):
+        acc = curve.add(acc, xs.map(lambda a: a[:, s]))
+    return acc
+
+
+def dbl_n(p: PointP, k: int) -> PointP:
+    for _ in range(k):
+        p = curve.dbl(p)
+    return p
+
+
+def _gather_last(p: PointP, idx: torch.Tensor) -> PointP:
+    """Coordinates (8, G, L) read at idx (G, Q) along the last axis."""
+    e = idx[None].expand((NWORDS,) + tuple(idx.shape))
+    return p.map(lambda a: torch.gather(a, -1, e))
+
+
+def msm(points: PointP, scalars: torch.Tensor, c: int | None = None) -> PointP:
+    """sum_i scalars[i] * points[i]; points batch (N,), N a power of two
+    (identity lanes allowed), scalars (8, N) RAW Fr limbs. Returns a
+    projective PointP of batch ()."""
+    return msm_multi(points, scalars[None], c=c).map(lambda a: a[..., 0])
+
+
+def msm_multi(points: PointP, scalars: torch.Tensor, c: int | None = None) -> PointP:
+    """Batched-column MSM: out[t] = sum_i scalars[t, i] * points[i].
+    scalars: (C, 8, N) RAW limbs over a shared point set; returns PointP of
+    batch (C,)."""
+    C, _, n = scalars.shape
+    assert (n & (n - 1)) == 0, "msm: pad N to a power of two"
+    dev = points.device
+    if c is None:
+        c = default_window_bits(n)
+    digits, negs = extract_digits_signed(scalars.movedim(0, 1), c)   # (W, C, N)
+    n_bound = 1 << (c - 1)
+    W = digits.shape[0]
+    G = C * W                                                   # window g = col*W + w
+    d = digits.movedim(1, 0).reshape(G, n)
+    ng = negs.movedim(1, 0).reshape(G, n)
+
+    sorted_d, order = torch.sort(d, dim=-1, stable=True)
+    pts = points.map(lambda a: a[:, order])                     # (8, G, N)
+    sn = torch.gather(ng, -1, order)
+    pts = PointP(pts.x, limbs.select(sn, curve.neg(pts).y, pts.y), pts.z)
+    queries = torch.arange(1, n_bound + 1, device=dev).expand(G, n_bound).contiguous()
+    starts = torch.searchsorted(sorted_d, queries)              # (G, B)
+    safe = starts.clamp(min=1) - 1
+    if n > _BLOCK:
+        # prefix values are needed only at the bucket boundaries: block-local
+        # prefixes plus the previous blocks' total, combined there only
+        m = n // _BLOCK
+        local = _seq_inclusive(pts.map(lambda a: a.reshape(NWORDS, G, m, _BLOCK)))
+        tot_incl = prefix_scan_points(local.map(lambda a: a[..., -1]))   # (8, G, m)
+        t_w = tot_incl.map(lambda a: a[..., -1])
+        e_loc = _gather_last(local.map(lambda a: a.reshape(NWORDS, G, n)), safe)
+        blk = safe // _BLOCK
+        e_off = _gather_last(tot_incl, blk.clamp(min=1) - 1)
+        e_off = curve.select_point(blk == 0, curve.identity(blk.shape, dev), e_off)
+        e_pts = curve.add(e_loc, e_off)
+    else:
+        incl = prefix_scan_points(pts)
+        t_w = incl.map(lambda a: a[..., -1])
+        e_pts = _gather_last(incl, safe)
+    e_pts = curve.select_point(starts == 0, curve.identity(starts.shape, dev), e_pts)
+    f_w = fold_points(e_pts).map(lambda a: a.reshape(NWORDS, C, W))
+    t_w = t_w.map(lambda a: a.reshape(NWORDS, C, W))
+
+    # V_w = B*T_w - F_w = sum_b b * bucket_b over this window's B = 2^(c-1)
+    # buckets
+    v = curve.add(dbl_n(t_w, c - 1), curve.neg(f_w))            # (8, C, W)
+    v = v.map(lambda a: a.movedim(-1, 1).contiguous())         # (8, W, C)
+    acc = curve.identity((C,), dev)
+    for w in range(W - 1, -1, -1):                              # Horner, MSB first
+        acc = curve.add(dbl_n(acc, c), v.map(lambda a: a[:, w]))
+    return acc
+
+
+def pad_msm_inputs(points: PointP, scalars: torch.Tensor):
+    """Pad N to the next power of two with identity points / zero scalars."""
+    n = scalars.shape[-1]
+    target = 1 if n == 0 else 1 << (n - 1).bit_length()
+    if target == n:
+        return points, scalars
+    idp = curve.identity((target - n,), points.device)
+    points = PointP(*(torch.cat([a, b], dim=-1) for a, b in zip(points, idp)))
+    scalars = torch.cat([scalars, torch.zeros((NWORDS, target - n), dtype=scalars.dtype,
+                                              device=scalars.device)], dim=-1)
+    return points, scalars

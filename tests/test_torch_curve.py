@@ -1,0 +1,86 @@
+"""The port's G1 arithmetic (`ezkl_tpu_torch.fieldmath.curve`: K3 add and
+K9 dbl through their plain versions on the CPU) against the JAX package's
+`ezkl_tpu.fieldmath.curve` on the same projective inputs. Tolerance:
+bit-exact projective coordinates; `scalar_mul` affine-equal to the host
+oracle `hostcurve.g1_mul`."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+
+from ezkl_tpu.fieldmath import curve as ref_curve
+from ezkl_tpu.fieldmath import hostcurve as ref_host
+from ezkl_tpu.fieldmath import limbs as ref_limbs
+from ezkl_tpu.fieldmath.spec import bn254_fq as ref_fq
+from ezkl_tpu_torch import convert
+from ezkl_tpu_torch.fieldmath import curve, limbs
+from ezkl_tpu_torch.fieldmath.spec import bn254_fr
+
+P = ref_host.P
+
+
+def _projective(points, rng):
+    """Host affine points (None = identity) -> reference PointP with a random
+    Z per lane (X = xZ, Y = yZ), so the inputs are not affine."""
+    xs, ys, zs = [], [], []
+    for pt in points:
+        if pt is None:
+            xs.append(0), ys.append(1), zs.append(0)
+            continue
+        z = int.from_bytes(rng.bytes(32), "little") % P or 1
+        xs.append(pt[0] * z % P), ys.append(pt[1] * z % P), zs.append(z)
+    fq = ref_fq()
+    return ref_curve.PointP(*(jnp.asarray(ref_limbs.encode(fq, v)) for v in (xs, ys, zs)))
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    """p, q lanes: random multiples of G1, identity + P, P + P, P + (-P),
+    identity + identity."""
+    rng = np.random.default_rng(11)
+    base = [ref_host.g1_mul(ref_host.G1, int(k)) for k in rng.integers(1, 1 << 60, size=5)]
+    ps = base + [None, base[0], base[1], None]
+    qs = base[::-1] + [base[2], base[0], ref_host.g1_neg(base[1]), None]
+    return _projective(ps, rng), _projective(qs, rng), ps, qs
+
+
+def _port(p):
+    return convert.points_from_ref(p, "cpu")
+
+
+def _same(port_pt, ref_pt):
+    for a, b in zip(port_pt, ref_pt):
+        np.testing.assert_array_equal(convert.limbs_to_ref(a), np.asarray(b))
+
+
+def test_add_bit_exact_vs_reference(inputs):
+    p, q, ps, qs = inputs
+    out = curve.add(_port(p), _port(q))
+    _same(out, ref_curve.add(p, q))
+    assert curve.decode_points(out) == [ref_host.g1_add(a, b) for a, b in zip(ps, qs)]
+
+
+def test_dbl_bit_exact_vs_reference(inputs):
+    p, _, ps, _ = inputs
+    out = curve.dbl(_port(p))
+    _same(out, ref_curve.dbl(p))
+    assert curve.decode_points(out) == [ref_host.g1_add(a, a) for a in ps]
+
+
+def test_scalar_mul_affine_equal_to_host():
+    fr = bn254_fr()
+    rng = np.random.default_rng(5)
+    ks = [0, 1, fr.modulus - 1] + [int.from_bytes(rng.bytes(32), "little") % fr.modulus
+                                    for _ in range(3)]
+    bits = curve.scalars_to_bits(limbs.to_device(limbs.encode(fr, ks, mont=False), "cpu"))
+    out = curve.scalar_mul(curve.generator((len(ks),), "cpu"), bits)
+    assert curve.decode_points(out) == [ref_host.g1_mul(ref_host.G1, k) for k in ks]
+
+
+def test_encode_decode_and_neg():
+    pts = [ref_host.g1_mul(ref_host.G1, k) for k in (3, 5)] + [None]
+    enc = curve.encode_points(pts, "cpu")
+    assert curve.decode_points(enc) == pts
+    assert curve.decode_points(curve.neg(enc)) == [ref_host.g1_neg(pt) for pt in pts]
+    ident = curve.identity((2,), "cpu")
+    assert bool(curve.is_identity(ident).all())

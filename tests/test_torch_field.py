@@ -1,0 +1,127 @@
+"""The port's field arithmetic (`ezkl_tpu_torch.fieldmath.limbs`, on the CPU
+through the plain versions) against the JAX package's
+(`ezkl_tpu.fieldmath.limbs`) on the same inputs. Tolerance: bit-exact (the
+port's (8, n) words converted to the reference's (16, n) limbs are equal
+array for array)."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+
+from ezkl_tpu.fieldmath import limbs as ref
+from ezkl_tpu.fieldmath import spec as ref_spec
+from ezkl_tpu_torch import convert
+from ezkl_tpu_torch.fieldmath import limbs
+from ezkl_tpu_torch.fieldmath.spec import bn254_fq, bn254_fr
+
+N = 12
+SPECS = {"fr": (bn254_fr(), ref_spec.bn254_fr()), "fq": (bn254_fq(), ref_spec.bn254_fq())}
+
+
+def _values(p, seed):
+    rng = np.random.default_rng(seed)
+    rand = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(N - 3)]
+    return [0, 1, p - 1] + rand          # the cases of tests/test_field.py + random
+
+
+def _pair(field, seed):
+    """The same Montgomery inputs for both packages: (ref arrays, port tensors)."""
+    spec, rspec = SPECS[field]
+    a_ref = ref.encode(rspec, _values(spec.modulus, seed))
+    b_ref = ref.encode(rspec, _values(spec.modulus, seed + 1)[::-1])
+    return (a_ref, b_ref), (convert.limbs_from_ref(a_ref, "cpu"), convert.limbs_from_ref(b_ref, "cpu"))
+
+
+def _same(port, ref_out):
+    np.testing.assert_array_equal(convert.limbs_to_ref(port), np.asarray(ref_out))
+
+
+OPS = {
+    "mont_mul": (lambda s, a, b: limbs.mont_mul(s, a, b), lambda s, a, b: ref.mont_mul(s, a, b)),
+    "add": (lambda s, a, b: limbs.add(s, a, b), lambda s, a, b: ref.add(s, a, b)),
+    "sub": (lambda s, a, b: limbs.sub(s, a, b), lambda s, a, b: ref.sub(s, a, b)),
+    "batch_inv": (lambda s, a, b: limbs.batch_inv(s, a), lambda s, a, b: ref.batch_inv(s, a)),
+    "prefix_scan_mul": (lambda s, a, b: limbs.prefix_scan_mul(s, a),
+                        lambda s, a, b: ref.prefix_scan_mul(s, a)),
+}
+
+
+@pytest.mark.parametrize("field", sorted(SPECS))
+@pytest.mark.parametrize("op", sorted(OPS))
+def test_field_op_bit_exact_vs_reference(field, op):
+    spec, rspec = SPECS[field]
+    (a_ref, b_ref), (a, b) = _pair(field, seed=7)
+    port_fn, ref_fn = OPS[op]
+    _same(port_fn(spec, a, b), ref_fn(rspec, jnp.asarray(a_ref), jnp.asarray(b_ref)))
+
+
+@pytest.mark.parametrize("field", sorted(SPECS))
+def test_powers_bit_exact_vs_reference(field):
+    spec, rspec = SPECS[field]
+    base = 0x1234567890ABCDEF1234567890ABCDEF % spec.modulus
+    _same(limbs.powers(spec, base, N, "cpu"), ref.powers(rspec, base, N))
+    # powers_dynamic (device base) agrees with the host table
+    dyn = limbs.powers_dynamic(spec, limbs.const(spec, base, device="cpu"), N)
+    _same(dyn, ref.powers(rspec, base, N))
+
+
+@pytest.mark.parametrize("field", sorted(SPECS))
+def test_against_host_bigints(field):
+    """Plain versions vs Python ints, incl. conversions in and out of
+    Montgomery form, neg, inv and the suffix scan."""
+    spec, _ = SPECS[field]
+    p = spec.modulus
+    xs, ys = _values(p, 3), _values(p, 4)
+    a = limbs.to_device(limbs.encode(spec, xs), "cpu")
+    b = limbs.to_device(limbs.encode(spec, ys), "cpu")
+    dec = lambda t: [int(v) for v in limbs.decode(spec, t)]   # noqa: E731
+    assert dec(limbs.mont_mul(spec, a, b)) == [x * y % p for x, y in zip(xs, ys)]
+    assert dec(limbs.neg(spec, a)) == [(-x) % p for x in xs]
+    assert dec(limbs.inv(spec, a)) == [pow(x, -1, p) if x else 0 for x in xs]
+    raw = limbs.from_mont(spec, a)
+    assert [int(v) for v in limbs.decode(spec, raw, mont=False)] == xs
+    assert dec(limbs.to_mont(spec, raw)) == xs
+    suffix = dec(limbs.prefix_scan_mul(spec, a, reverse=True))
+    want, acc = [], 1
+    for x in reversed(xs):
+        acc = acc * x % p
+        want.append(acc)
+    assert suffix == want[::-1]
+    assert dec(limbs.prefix_scan_add(spec, a))[-1] == sum(xs) % p
+
+
+def test_layout_round_trip_and_i64_encoding():
+    """convert's word packing is `msm._pack2` of the reference layout, and
+    encode_i64 maps negatives to p - |x| as the reference does."""
+    spec, rspec = SPECS["fr"]
+    vals = np.array([0, 1, -1, 2**40, -(2**62), 12345], dtype=np.int64)
+    ref_raw = ref.encode_i64(rspec, vals)
+    np.testing.assert_array_equal(convert.words_from_ref(ref_raw), limbs.encode_i64(spec, vals))
+    np.testing.assert_array_equal(convert.limbs_to_ref(limbs.encode_i64(spec, vals)), ref_raw)
+    rows = limbs.pack_rows(limbs.encode_i64(spec, vals))
+    assert len(set(rows.tolist())) == len(vals)
+
+
+@pytest.mark.parametrize("a_shape, b_shape, representable", [
+    ((8, 3, 16), (8, 1, 1), True),           # a constant
+    ((8, 3, 16), (8, 1, 16), True),          # one row over a batch (coset powers)
+    ((8, 3, 16), (8, 3, 1), True),           # one value per row (batch_inv's total_inv)
+    ((8, 2, 3, 4), (8, 1, 3, 1), True),      # a run of middle dims
+    ((8, 3, 16), (8, 3, 16), True),          # no broadcast
+    ((8, 2, 3, 4), (8, 2, 1, 4), False),     # not one run: K1 gets a copy
+])
+def test_k1_broadcast_operand_index(a_shape, b_shape, representable):
+    """The index map of K1's broadcast operand: element j of the output reads
+    b[(j // repeat) % period] (`bcast_form`, mirrored by `ez_mont_mul`);
+    an expanded (stride-0) operand is read at its unexpanded size."""
+    import torch
+    shape = torch.broadcast_shapes(a_shape, b_shape)
+    b = torch.arange(int(np.prod(b_shape)), dtype=torch.int32).reshape(b_shape)
+    form = limbs.bcast_form(b_shape, shape)
+    assert (form is not None) == representable
+    if form is not None:
+        period, rep = form
+        j = torch.arange(int(np.prod(shape[1:])))
+        want = b.expand(shape).reshape(8, -1)
+        assert torch.equal(b.reshape(8, period)[:, (j // rep) % period], want)
+        assert limbs._unexpand(b.expand(shape)).shape == b_shape

@@ -1,0 +1,124 @@
+"""Guards of the PyTorch/CUDA port (`ezkl_tpu_torch`):
+
+* neither the package nor its card scripts (`chip_smoke.py`,
+  `tools/profile_torch_prove.py`) import `jax` or the JAX package
+  `ezkl_tpu` (checked on the source with `ast`);
+* every kernel wrapper (K1 mont_mul, K2 bfly, K3 point_add, K9 point_dbl)
+  raises when its kernel cannot be built, instead of falling back to the
+  plain version; and a tensor on the card always takes the kernel route.
+
+No card is needed: the build is mocked.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from ezkl_tpu_torch.fieldmath import curve, limbs
+from ezkl_tpu_torch.fieldmath.spec import bn254_fr
+from ezkl_tpu_torch.kernels import build, pcurve, pntt
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "ezkl_tpu")
+FR = bn254_fr()
+
+
+def _sources():
+    files = sorted((ROOT / "ezkl_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_prove.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_never_imports_jax_or_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported_modules(tree) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def _no_nvcc(*args, **kwargs):
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _field(n=4):
+    return limbs.to_device(limbs.encode(FR, list(range(1, n + 1))), "cpu")
+
+
+def _points(n=4):
+    return curve.generator((n,), "cpu")
+
+
+KERNEL_CALLS = {
+    "mont_mul": lambda: limbs._mont_mul_kernel(FR, _field(), _field()),
+    "bfly": lambda: pntt._bfly_kernel(FR, _field(), _field(1)),
+    "point_add": lambda: pcurve._launch("point_add", "ez_point_add", (*_points(), *_points())),
+    "point_dbl": lambda: pcurve._launch("point_dbl", "ez_point_dbl", tuple(_points())),
+}
+
+PUBLIC_CALLS = {
+    "mont_mul": lambda: limbs.mont_mul(FR, _field(), _field()),
+    "bfly": lambda: pntt.bfly(FR, _field(), _field(1)),
+    "point_add": lambda: curve.add(_points(), _points()),
+    "point_dbl": lambda: curve.dbl(_points()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CALLS))
+def test_kernel_route_raises_when_the_build_fails(monkeypatch, name):
+    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.setattr(build, "build", _no_nvcc)
+    before = dict(build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        KERNEL_CALLS[name]()
+    assert build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CALLS))
+def test_kernel_route_refuses_host_tensors(monkeypatch, name):
+    """With a library loaded, the kernel route still refuses CPU tensors
+    rather than computing anything itself."""
+    monkeypatch.setattr(build, "_LIB", object())
+    with pytest.raises(ValueError, match="CUDA device"):
+        KERNEL_CALLS[name]()
+
+
+@pytest.mark.parametrize("name", sorted(PUBLIC_CALLS))
+def test_card_tensors_take_the_kernel_route(monkeypatch, name):
+    """The public entry points dispatch on the tensor's device alone: a
+    tensor on the card reaches the (here unbuildable) kernel, never the
+    plain version."""
+    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.setattr(build, "build", _no_nvcc)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        PUBLIC_CALLS[name]()
+
+
+def test_cuh_constants_match_the_field_specs():
+    """The moduli, 2p and -p^-1 mod 2^32 written into bn254.cuh."""
+    import re
+    from ezkl_tpu_torch.fieldmath.spec import bn254_fq
+    text = (ROOT / "ezkl_tpu_torch" / "csrc" / "bn254.cuh").read_text()
+    for struct, spec in (("Fr", FR), ("Fq", bn254_fq())):
+        body = text[text.index(f"struct {struct} {{"):]
+        body = body[:body.index("\n};")]
+        inv = int(re.search(r"INV = (0x[0-9a-f]+)u", body).group(1), 16)
+        arrays = re.findall(r"\{([0-9a-fx, u\n]+)\}", body)
+        words = [[int(w, 16) for w in re.findall(r"0x[0-9a-f]+", a)] for a in arrays]
+        value = lambda ws: sum(w << (32 * i) for i, w in enumerate(ws))  # noqa: E731
+        assert value(words[0]) == spec.modulus
+        assert value(words[1]) == 2 * spec.modulus
+        assert (inv * spec.modulus) % (1 << 32) == (1 << 32) - 1

@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Profile one `create_proof` of the PyTorch/CUDA port on the card.
+
+    python3 tools/profile_torch_prove.py [--k 14]
+
+Builds the kernels, keys the circuit of `chip_smoke.py` (k = 14 unless
+told), proves once to warm up, once more timed, and once under
+`torch.profiler`. Prints the card's name and power limit as nvidia-smi gives
+them, then one JSON line:
+
+  wall_s          host time of the timed create_proof (ends synchronized)
+  profiled_wall_s the same for the profiled run (the profiler's own cost in)
+  device_busy_s   sum of the durations of the device's kernels, copies and
+                  sets in the profiled run (one stream: they do not overlap)
+  busy_share      device_busy_s / profiled_wall_s; the device idles the rest
+  busy_share_of_wall  device_busy_s / wall_s: the same device time against
+                  the unprofiled prove (the profiler slows the host, not the
+                  device, so this is the share a plain prove sees)
+  phases          per prover phase (`prover._span` ranges): wall_s, busy_s,
+                  device_ops
+  top             device operations by total time: name, count, total_ms
+
+Needs one CUDA card and exits non-zero without one, or when the profiler
+records no device activity.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import pathlib
+import sys
+import time
+from collections import defaultdict
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+
+import chip_smoke  # noqa: E402
+
+TOP = 15
+
+
+def _breakdown(events, device_type, phase_names):
+    """Device time in total, per phase and per operation name, from the raw
+    profiler events (read directly: building PyTorch's per-event objects for
+    a whole prove takes minutes)."""
+    ops, spans = [], {}
+    for e in events:
+        name = e.name()
+        if name in phase_names:
+            if e.device_type() != device_type:          # the host-side range
+                spans[name] = (e.start_ns(), e.start_ns() + e.duration_ns())
+        elif e.device_type() == device_type and not e.is_user_annotation():
+            ops.append((e.start_ns(), e.duration_ns(), name))
+    if not ops:
+        raise RuntimeError("the profiler recorded no device activity")
+    ops.sort()
+    starts = [s for s, _, _ in ops]
+    phases = {}
+    for name, (lo, hi) in sorted(spans.items(), key=lambda kv: kv[1]):
+        inside = ops[bisect.bisect_left(starts, lo):bisect.bisect_left(starts, hi)]
+        phases[name] = {"wall_s": (hi - lo) / 1e9,
+                        "busy_s": sum(d for _, d, _ in inside) / 1e9,
+                        "device_ops": len(inside)}
+    by_name = defaultdict(lambda: [0, 0])
+    for _, d, name in ops:
+        by_name[name][0] += 1
+        by_name[name][1] += d
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
+    busy = sum(d for _, d, _ in ops) / 1e9
+    return busy, phases, [{"name": name[:120], "count": c, "total_ms": ns / 1e6}
+                          for name, (c, ns) in top]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k", type=int, default=chip_smoke.K)
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    if not torch.cuda.is_available():
+        print("profile_torch_prove: no CUDA device", file=sys.stderr)
+        return 2
+    from ezkl_tpu_torch.kernels import build
+    from ezkl_tpu_torch.plonk import keygen, prover, srs as srsmod
+
+    print(chip_smoke.nvidia_smi(), flush=True)
+    build.lib()
+    dev = torch.device("cuda", 0)
+    cs, asg, _ = chip_smoke.build_circuit(np.random.default_rng(chip_smoke.SEED), args.k)
+    srs = srsmod.gen_srs(args.k, device=dev)
+    pk = keygen.keygen(cs, args.k, srs, asg, device=dev)
+
+    def prove():
+        t0 = time.perf_counter()
+        prover.create_proof(pk, srs, asg, seed=chip_smoke.SEED)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prove()                                        # warm-up
+    wall = prove()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        profiled_wall = prove()
+    busy, phases, top = _breakdown(prof.profiler.kineto_results.events(), DeviceType.CUDA,
+                                   set(prover.PHASE_SECONDS))
+    chip_smoke.emit({"phase": "profile", "k": args.k, "wall_s": wall,
+                     "profiled_wall_s": profiled_wall, "device_busy_s": busy,
+                     "busy_share": busy / profiled_wall, "busy_share_of_wall": busy / wall,
+                     "phases": phases, "top": top,
+                     "device": torch.cuda.get_device_name(0)})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
