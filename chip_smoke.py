@@ -7,11 +7,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device  -- the card (nvidia-smi name and power limit), CUDA and nvcc versions
 2. build   -- nvcc builds `ezkl_tpu_torch/csrc/*.cu` for sm_90a
-3. kernels -- every kernel of the proving path (K1 Montgomery multiply, K2
-              NTT butterfly, K3 point add, K9 point doubling) against its
-              plain PyTorch version on the card, bit-exact, on seeded inputs
-              plus edge values, at the main path's shapes (K1 also with its
-              broadcast operand forms); timed as device time per launch
+3. kernels -- every kernel of the port (K1 Montgomery multiply, K2 NTT
+              butterfly, K3 point add, K9 point doubling, and the fused
+              MSM's K4 packed signed scan, K5 point prefix scan and K6
+              bucket fold in both variants, K7 2^c doubling, K8 Horner
+              combine) against its plain PyTorch version on the card,
+              bit-exact, on seeded inputs plus edge values (identities, the
+              pad pair and both signs for K4), at the main path's shapes
+              (K1 also with its broadcast operand forms); timed as device
+              time per launch
               (`ms`: launches replayed from a CUDA graph, cycling over
               copies of the inputs that overflow the L2, so operands come
               from HBM as `bound_ms` assumes; `l2_ms`: the same launch
@@ -23,13 +27,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
               copy constraints into the instance and a shuffle, filled over
               every usable row; verified by the port's host verifier, which
               must reject the proof with a tampered instance. Launch counts
-              of every kernel are reset just before create_proof and read
-              just after; each must be > 0.
-5. check   -- a 2^14-point MSM on the card against the host MSM, and an NTT
-              round trip at 2^17
+              are reset just before gen_srs and create_proof and read just
+              after each: K1-K8 must be > 0 in create_proof (whose
+              commitments run the fused MSM), K9 in gen_srs.
+5. check   -- 2^14-point MSMs on the card against the host MSM: the fused
+              pipeline on the SRS points (affine=True, as commitments run it,
+              and affine=False) and the unfused one (K9 must be > 0 there);
+              and an NTT round trip at 2^17
 
-Then the `kernels` summary line (times, bounds, launches), the nvidia-smi
-line, and last `{"ok": true, "device": {...}}`.
+Then a `times` line (seconds of phases 3-5), the `kernels` summary line
+(times, bounds, launches: K1-K8 from create_proof, K9 from gen_srs), the
+nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -56,6 +64,21 @@ IMAD_PER_S = 132 * 64 * 1.98e9
 # a 256-bit Montgomery multiply (8x8-word CIOS): 128 32x32->64 products at
 # two IMADs each + 8 low products
 IMAD_PER_MONT_MUL = 2 * 128 + 8
+
+
+KERNEL_META = {
+    "mont_mul": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/fieldmath/limbs.py:682"),
+    "bfly": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/kernels/pntt.py:31"),
+    "point_add": ("ezkl_tpu_torch/csrc/curve.cu", "ezkl_tpu/kernels/pcurve.py:199"),
+    "point_dbl": ("ezkl_tpu_torch/csrc/curve.cu", "ezkl_tpu/kernels/pcurve.py:215"),
+    "scan_packed": ("ezkl_tpu_torch/csrc/msm.cu", "ezkl_tpu/kernels/pcurve.py:322"),
+    "scan_steps": ("ezkl_tpu_torch/csrc/msm.cu", "ezkl_tpu/kernels/pcurve.py:259"),
+    "fold_lanes": ("ezkl_tpu_torch/csrc/msm.cu", "ezkl_tpu/kernels/pcurve.py:438"),
+    "dbl_pow2": ("ezkl_tpu_torch/csrc/msm.cu", "ezkl_tpu/kernels/pcurve.py:647"),
+    "horner": ("ezkl_tpu_torch/csrc/msm.cu", "ezkl_tpu/kernels/pcurve.py:557"),
+}
+POINT_KERNELS = ("point_add", "point_dbl", "scan_packed", "scan_steps", "fold_lanes",
+                 "dbl_pow2", "horner")
 
 
 def emit(obj):
@@ -119,10 +142,12 @@ def device_ms(kernel, inputs, cold=True, reps=GRAPH_REPS):
     return start.elapsed_time(end) / reps
 
 
-def timings(kernel, inputs, plain):
-    """`ms` (operands from HBM), `l2_ms`, `eager_ms` and `plain_ms`."""
-    return dict(ms=device_ms(kernel, inputs), l2_ms=device_ms(kernel, inputs, cold=False),
-                eager_ms=time_ms(lambda: kernel(*inputs)),
+def timings(kernel, inputs, plain, reps=GRAPH_REPS):
+    """`ms` (operands from HBM), `l2_ms`, `eager_ms` and `plain_ms`; `reps`
+    launches per graph (each keeps its output)."""
+    return dict(ms=device_ms(kernel, inputs, reps=reps),
+                l2_ms=device_ms(kernel, inputs, cold=False, reps=reps),
+                eager_ms=time_ms(lambda: kernel(*inputs), min(REPS, reps)),
                 plain_ms=time_ms(lambda: plain(*inputs), 3))
 
 
@@ -267,7 +292,137 @@ def check_kernels(dev, rng):
         d = curve.decode_points(pcurve.point_dbl(P).map(lambda t: t[:, 1:2]))
         if not (s[0] == p0[0] and s[1] == d[0] and s[2] is None and s[3] is None):
             raise AssertionError("point_add edge lanes wrong")
+    rows.update(check_msm_kernels(dev, rng))
     build.reset_launches()        # comparison launches do not count
+    return rows
+
+
+# The fused MSM at k = 14 (n = 2^14, c = 10, so W = 26 signed windows, B = 512
+# buckets, S = 128 scan steps) over C committed columns: K4 scans C * 26 *
+# 2^14 / 128 = C * 3,328 lanes of 128 steps; the block-total prefix runs K5
+# on C * 104 lanes of 32 steps (then C * 26 lanes of 4); K6 folds each
+# window's 512 bucket sums in 4 chunks of 128 lanes; K7 doubles C * 26
+# window totals 9 times; K8 combines 26 windows at c = 10 over C columns.
+MSM_N, MSM_C, MSM_W, MSM_S = 1 << K, 10, 26, 128
+
+
+def _pool(dev, rng, n=1 << 12):
+    """Projective multiples of G1 with nontrivial Z, and their affine (x, y)."""
+    import torch
+    from ezkl_tpu_torch.fieldmath import curve
+    bits = torch_index(rng.integers(0, 2, size=(64, n)), dev).to(torch.int32)
+    P = curve.scalar_mul(curve.generator((n,), dev), bits)
+    return P, curve.to_affine(P)
+
+
+def _gather(coords, idx):
+    return tuple(c[:, idx].contiguous() for c in coords)
+
+
+def _set(coords, mask, values):
+    """coords with the lanes of `mask` (batch bool) set to `values` ((8,) each)."""
+    import torch
+    return tuple(torch.where(mask[None], v.reshape((8,) + (1,) * mask.dim()), c).contiguous()
+                 for c, v in zip(coords, values))
+
+
+def check_msm_kernels(dev, rng):
+    """K4-K8 against their plain versions at the k = 14 main path's shapes,
+    bit-exact, with edge lanes; one `kernel` line each (both variants of K5
+    and K6, K4 at C = 1 and C = 8). Returns the rows at C = 8."""
+    import torch
+    from ezkl_tpu_torch.fieldmath import curve, limbs
+    from ezkl_tpu_torch.fieldmath.spec import bn254_fq
+    from ezkl_tpu_torch.kernels import pcurve
+
+    FQ = bn254_fq()
+    P, (ax, ay) = _pool(dev, rng)
+    zero = torch.zeros(8, dtype=torch.int32, device=dev)
+    one = limbs.const(FQ, 1, device=dev)
+    ident = (zero, one, zero)
+    rows = {}
+
+    def run(name, kern, plain, inputs, nbytes, imad, reps=GRAPH_REPS, **extra):
+        err = max_abs_err(kern(*inputs), plain(*inputs))
+        row = dict(max_abs_err=err, **extra, **timings(kern, inputs, plain, reps))
+        row["bound_ms"], row["bound_by"] = bound(nbytes, imad)
+        emit({"phase": "kernel", "kernel": name, **row})
+        if err:
+            raise AssertionError(f"{name} kernel != plain ({extra})")
+        return row
+
+    def rand_idx(*shape):
+        return torch_index(rng.integers(0, P.x.shape[1], size=shape), dev)
+
+    mm = IMAD_PER_MONT_MUL
+    for C in (1, 8):
+        # K4: lanes of 128 steps; pad pairs (0, 1) at a first step, a later
+        # step and over a whole lane; both signs
+        L = C * MSM_W * MSM_N // MSM_S
+        x, y = _gather((ax, ay), rand_idx(MSM_S, L))
+        pad = torch.zeros(MSM_S, L, dtype=torch.bool, device=dev)
+        pad[0, 0] = pad[5, 1] = True
+        pad[:, 2] = True
+        x, y = _set((x, y), pad, (zero, one))
+        sn = torch_index(rng.integers(0, 2, size=(MSM_S, L)), dev).to(torch.int32)
+        adds = int((~pad[1:]).sum())
+        row = run("scan_packed", pcurve._scan_packed_kernel, pcurve.scan_packed_plain,
+                  [x, y, sn], (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * adds,
+                  reps=20 if C == 1 else 5, columns=C, lanes=L, steps=MSM_S)
+        del x, y, sn, pad
+    rows["scan_packed"] = row
+    C = 8
+    G = C * MSM_W
+
+    # K5 at the block-total prefix's first level: C * 104 lanes x 32 steps
+    L, S = G * 4, 32
+    idx = rand_idx(S, L)
+    mask = torch.zeros(S, L, dtype=torch.bool, device=dev)
+    mask[0, 0] = mask[3, 1] = True
+    mask[:, 2] = True
+    Pq = _set(_gather(P, idx), mask, ident)
+    Pa = _gather((ax, ay), idx)
+    for variant, inputs, nin, muls in (("complete", list(Pq), 3, 12), ("mixed", list(Pa), 2, 11)):
+        row = run("scan_steps", lambda *t: pcurve._scan_steps_kernel(
+                      curve.PointP(*t) if len(t) == 3 else t),
+                  lambda *t: pcurve.scan_steps_plain(curve.PointP(*t) if len(t) == 3 else t),
+                  inputs, (nin + 3) * 32 * S * L, muls * mm * (S - 1) * L,
+                  variant=variant, columns=C, lanes=L, steps=S)
+        if variant == "complete":
+            rows["scan_steps"] = row
+
+    # K6 over the B = 512 bucket sums of every window: G groups, 4 chunks of 128
+    chunks, blk = 4, 128
+    idx = rand_idx(G, chunks * blk)
+    mask = torch_index(rng.random((G, chunks * blk)) < 0.05, dev).bool()
+    mask[0, 0] = True
+    Pq = _set(_gather(P, idx), mask, ident)
+    Pa = _gather((ax, ay), idx)
+    for variant, inputs, nin, muls in (("complete", list(Pq), 3, 12), ("mixed", list(Pa), 2, 11)):
+        row = run("fold_lanes", lambda *t: pcurve._fold_lanes_kernel(
+                      curve.PointP(*t) if len(t) == 3 else t, blk),
+                  lambda *t: pcurve.fold_lanes_plain(curve.PointP(*t) if len(t) == 3 else t, blk),
+                  inputs, nin * 32 * G * chunks * blk + 96 * G * blk,
+                  muls * mm * (chunks - 1) * G * blk,
+                  variant=variant, columns=C, groups=G, chunks=chunks, blk=blk)
+        if variant == "complete":
+            rows["fold_lanes"] = row
+
+    # K7: 2^(c-1) * T_w over the C * 26 window totals, c = 10
+    lane0 = torch.arange(G, device=dev) == 0
+    T = _set(_gather(P, rand_idx(G)), lane0, ident)
+    rows["dbl_pow2"] = run("dbl_pow2", lambda *t: pcurve._dbl_pow2_kernel(curve.PointP(*t), 9),
+                           lambda *t: pcurve.dbl_pow2_plain(curve.PointP(*t), 9),
+                           list(T), 6 * 32 * G, 9 * 8 * mm * G, lanes=G, c=9)
+
+    # K8: W = 26 windows at c = 10 over C columns
+    mask = torch.zeros(MSM_W, C, dtype=torch.bool, device=dev)
+    mask[0, 0] = mask[3, 2] = True
+    V = _set(_gather(P, rand_idx(MSM_W, C)), mask, ident)
+    rows["horner"] = run("horner", lambda *t: pcurve._horner_kernel(curve.PointP(*t), MSM_C),
+                         lambda *t: pcurve.horner_plain(curve.PointP(*t), MSM_C),
+                         list(V), 3 * 32 * (MSM_W + 1) * C,
+                         MSM_W * (MSM_C * 8 + 12) * mm * C, windows=MSM_W, c=MSM_C, width=C)
     return rows
 
 
@@ -325,10 +480,12 @@ def prove(dev, rng):
     from ezkl_tpu_torch.plonk import keygen, prover, srs as srsmod, verifier
 
     cs, asg, use = build_circuit(rng)
+    build.reset_launches()
     t0 = time.perf_counter()
     srs = srsmod.gen_srs(K, device=dev)
     torch.cuda.synchronize()
     t_srs = time.perf_counter() - t0
+    srs_launches = dict(build.LAUNCHES)
     t0 = time.perf_counter()
     pk = keygen.keygen(cs, K, srs, asg, device=dev)
     torch.cuda.synchronize()
@@ -352,15 +509,19 @@ def prove(dev, rng):
           "srs_s": t_srs, "keygen_s": t_keygen, "prove_s": t_prove, "verify_s": t_verify,
           "prove_phases_s": dict(prover.PHASE_SECONDS),
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches, "verified": ok, "tampered_rejected": rejected})
+          "launches": launches, "gen_srs_launches": srs_launches,
+          "point_launches": sum(launches[k] for k in POINT_KERNELS),
+          "verified": ok, "tampered_rejected": rejected})
     if not ok:
         raise AssertionError("the port's verifier rejected the k=14 proof")
     if not rejected:
         raise AssertionError("the verifier accepted a proof with a tampered instance")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in launches if k != "point_dbl" and launches[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    return srs, launches
+        raise AssertionError(f"kernels not launched by create_proof: {missing}")
+    if srs_launches["point_dbl"] <= 0:
+        raise AssertionError("point_dbl not launched by gen_srs")
+    return srs, launches, srs_launches
 
 
 # ---------------------------------------------------------------------------
@@ -368,28 +529,43 @@ def prove(dev, rng):
 # ---------------------------------------------------------------------------
 
 def check_outputs(dev, rng, srs):
+    """Returns the launch counts of the unfused MSM's run."""
     import torch
     from ezkl_tpu_torch.fieldmath import limbs, curve, hostcurve, native
     from ezkl_tpu_torch.fieldmath.spec import bn254_fr
-    from ezkl_tpu_torch.kernels import msm, ntt
+    from ezkl_tpu_torch.kernels import build, msm, ntt
 
     FR = bn254_fr()
     n = 1 << K if native.available() else 256
     pts = srs.g1.map(lambda t: t[:, :n].contiguous())
     scal = [int.from_bytes(rng.bytes(32), "little") % FR.modulus for _ in range(n)]
-    t0 = time.perf_counter()
-    got = curve.decode_points(msm.msm(pts, limbs.to_device(
-        limbs.encode(FR, scal, mont=False), dev)).map(lambda t: t[:, None]))[0]
-    t_msm = time.perf_counter() - t0
+    S = limbs.to_device(limbs.encode(FR, scal, mont=False), dev)
     want = hostcurve.g1_msm(curve.decode_points(pts), scal)
+    runs = {"fused_affine": lambda: msm.msm(pts, S, affine=True),
+            "fused_projective": lambda: msm.msm(pts, S, affine=False),
+            "unfused": lambda: msm.msm_multi_unfused(pts, S[None]).map(lambda t: t[..., 0])}
+    matches, seconds = {}, {}
+    for name, fn in runs.items():
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        matches[name] = curve.decode_points(out.map(lambda t: t[:, None]))[0] == want
+    unfused_launches = dict(build.LAUNCHES)
     x, _ = field_inputs(FR, 1 << 17, rng, dev)
     round_trip = torch.equal(ntt.intt(FR, ntt.ntt(FR, x)), x)
     small = limbs.to_device(limbs.encode(FR, scal[:64]), dev)
     ntt_ok = list(limbs.decode(FR, ntt.ntt(FR, small))) == ntt.host_ntt(FR, scal[:64])
-    emit({"phase": "check", "msm_n": n, "msm_matches_host": got == want, "msm_s": t_msm,
+    emit({"phase": "check", "msm_n": n, "msm_matches_host": matches, "msm_s": seconds,
+          "unfused_msm_launches": unfused_launches,
           "ntt_round_trip_2^17": round_trip, "ntt_64_matches_host": ntt_ok})
-    if not (got == want and round_trip and ntt_ok):
+    if not (all(matches.values()) and round_trip and ntt_ok):
         raise AssertionError("device outputs disagree with the host references")
+    if unfused_launches["point_dbl"] <= 0:
+        raise AssertionError("point_dbl not launched by the unfused MSM")
+    return unfused_launches
 
 
 def main() -> int:
@@ -415,26 +591,37 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
 
     rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
     rows = check_kernels(dev, rng)
-    srs, launches = prove(dev, rng)
-    check_outputs(dev, rng, srs)
+    t_kernels = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srs, launches, srs_launches = prove(dev, rng)
+    t_prove = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    unfused_launches = check_outputs(dev, rng, srs)
+    emit({"phase": "times", "kernels_s": t_kernels, "prove_phase_s": t_prove,
+          "check_s": time.perf_counter() - t0})
 
-    meta = {
-        "mont_mul": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/fieldmath/limbs.py:682"),
-        "bfly": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/kernels/pntt.py:31"),
-        "point_add": ("ezkl_tpu_torch/csrc/curve.cu", "ezkl_tpu/kernels/pcurve.py:199"),
-        "point_dbl": ("ezkl_tpu_torch/csrc/curve.cu", "ezkl_tpu/kernels/pcurve.py:215"),
-    }
+    # launches: K1-K8 from create_proof; K9 from gen_srs, its path since the
+    # fused MSM (K7, K8) took over the MSM's doublings
+    paths = {name: ("create_proof", launches[name]) for name in launches}
+    paths["point_dbl"] = ("gen_srs", srs_launches["point_dbl"])
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "ok": rows[name]["max_abs_err"] == 0,
-         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
+         "launches": paths[name][1], "launches_path": paths[name][0],
+         "max_abs_err": rows[name]["max_abs_err"],
          "ms": rows[name]["ms"], "l2_ms": rows[name]["l2_ms"],
          "eager_ms": rows[name]["eager_ms"],
          "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
-         "library_ms": None, "shape_n": rows[name]["n"]}
-        for name, (src, rep) in meta.items()]})
+         "library_ms": None,
+         "shape": {k: v for k, v in rows[name].items()
+                   if k in ("n", "lanes", "steps", "groups", "chunks", "blk", "c",
+                            "windows", "width", "columns")}}
+        for name, (src, rep) in KERNEL_META.items()],
+        "create_proof_point_dbl_launches": launches["point_dbl"],
+        "unfused_msm_point_dbl_launches": unfused_launches["point_dbl"]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

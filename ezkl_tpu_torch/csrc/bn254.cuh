@@ -1,5 +1,5 @@
 // BN254 Montgomery arithmetic for Hopper (sm_90a), shared by the port's
-// hand-written kernels (field.cu, curve.cu).
+// hand-written kernels (field.cu, curve.cu, msm.cu).
 //
 // Layout: a field element is eight little-endian 32-bit limbs in Montgomery
 // form with R = 2^256 -- the same Montgomery integers as the JAX package's
@@ -51,6 +51,12 @@ struct Fq {
     constexpr uint32_t P2[8] = {0xb0f9fa8eu, 0x7841182du, 0xd0e3951au, 0x2f02d522u,
                                 0x0302b0bbu, 0x70a08b6du, 0xc2634053u, 0x60c89ce5u};
     return P2[i];
+  }
+  // R mod p, the Montgomery form of 1
+  static __device__ __forceinline__ uint32_t one(int i) {
+    constexpr uint32_t ONE[8] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u,
+                                 0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
+    return ONE[i];
   }
 };
 
@@ -236,6 +242,40 @@ __device__ __forceinline__ void complete_add(const Fe& X1, const Fe& Y1, const F
   X3 = add2p<F>(t0, t0);
   t0 = add2p<F>(X3, t0);
   t2 = xb3<F>(t2);
+  Z3 = add2p<F>(t1, t2);
+  t1 = sub2p<F>(t1, t2);
+  Y3 = xb3<F>(Y3);
+  X3 = mul_lazy<F>(t4, Y3);
+  t2 = mul_lazy<F>(t3, t1);
+  X3 = sub2p<F>(t2, X3);
+  Y3 = mul_lazy<F>(Y3, t0);
+  t1 = mul_lazy<F>(t1, Z3);
+  Y3 = add2p<F>(t1, Y3);
+  t0 = mul_lazy<F>(t0, t3);
+  Z3 = mul_lazy<F>(Z3, t4);
+  Z3 = add2p<F>(Z3, t0);
+}
+
+// RCB15 algorithm 8 (a = 0, b3 = 9), the schedule of pcurve._mixed_add_l:
+// (X1:Y1:Z1) projective (identity allowed) plus the affine (X2, Y2), which
+// must not be the identity. 11 products. Lazy inside, as complete_add.
+template <class F>
+__device__ __forceinline__ void mixed_add(const Fe& X1, const Fe& Y1, const Fe& Z1,
+                                          const Fe& X2, const Fe& Y2, Fe& X3, Fe& Y3, Fe& Z3) {
+  Fe t0 = mul_lazy<F>(X1, X2);
+  Fe t1 = mul_lazy<F>(Y1, Y2);
+  Fe t3 = add2p<F>(X2, Y2);
+  Fe t4 = add2p<F>(X1, Y1);
+  t3 = mul_lazy<F>(t3, t4);
+  t4 = add2p<F>(t0, t1);
+  t3 = sub2p<F>(t3, t4);
+  t4 = mul_lazy<F>(Y2, Z1);
+  t4 = add2p<F>(t4, Y1);
+  Y3 = mul_lazy<F>(X2, Z1);
+  Y3 = add2p<F>(Y3, X1);
+  X3 = add2p<F>(t0, t0);
+  t0 = add2p<F>(X3, t0);
+  Fe t2 = xb3<F>(Z1);
   Z3 = add2p<F>(t1, t2);
   t1 = sub2p<F>(t1, t2);
   Y3 = xb3<F>(Y3);

@@ -3,7 +3,8 @@
 Points are projective (X:Y:Z) triples of Fq limb tensors ((8, *batch) each,
 Montgomery form), added with the complete formulas of Renes-Costello-Batina
 2015 (a = 0): no exceptional cases. Identity is (0:1:0). `add` and `dbl` are
-kernels K3 and K9 (`kernels/pcurve.py`).
+kernels K3 and K9 (`kernels/pcurve.py`); `add_mixed` (algorithm 8, an affine
+second operand) composes the field operations, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -69,6 +70,54 @@ def add(p: PointP, q: PointP) -> PointP:
     """Complete projective addition (RCB15 algorithm 7) -- kernel K3."""
     from ..kernels import pcurve
     return pcurve.point_add(p, q)
+
+
+def add_mixed(p: PointP, qx, qy, q_is_identity=None) -> PointP:
+    """p + (qx, qy, 1) by RCB15 algorithm 8 (11 products), the schedule of
+    the JAX package's `curve.add_mixed`; the products are K1 on the card.
+    Where `q_is_identity` (batch bool) is set, the lane returns p."""
+    fq = bn254_fq()
+    mul = lambda a, b: limbs.mont_mul(fq, a, b)                # noqa: E731
+    fadd = lambda a, b: limbs.add(fq, a, b)                    # noqa: E731
+    fsub = lambda a, b: limbs.sub(fq, a, b)                    # noqa: E731
+
+    def xb3(a):                                                # 9a = 8a + a
+        t = fadd(a, a)
+        t = fadd(t, t)
+        return fadd(fadd(t, t), a)
+
+    X1, Y1, Z1 = p
+    X2, Y2 = qx, qy
+    t0 = mul(X1, X2)
+    t1 = mul(Y1, Y2)
+    t3 = fadd(X2, Y2)
+    t4 = fadd(X1, Y1)
+    t3 = mul(t3, t4)
+    t4 = fadd(t0, t1)
+    t3 = fsub(t3, t4)
+    t4 = mul(Y2, Z1)
+    t4 = fadd(t4, Y1)
+    Y3 = mul(X2, Z1)
+    Y3 = fadd(Y3, X1)
+    X3 = fadd(t0, t0)
+    t0 = fadd(X3, t0)
+    t2 = xb3(Z1)
+    Z3 = fadd(t1, t2)
+    t1 = fsub(t1, t2)
+    Y3 = xb3(Y3)
+    X3 = mul(t4, Y3)
+    t2 = mul(t3, t1)
+    X3 = fsub(t2, X3)
+    Y3 = mul(Y3, t0)
+    t1 = mul(t1, Z3)
+    Y3 = fadd(t1, Y3)
+    t0 = mul(t0, t3)
+    Z3 = mul(Z3, t4)
+    Z3 = fadd(Z3, t0)
+    out = PointP(X3, Y3, Z3)
+    if q_is_identity is not None:
+        out = select_point(q_is_identity, p, out)
+    return out
 
 
 def dbl(p: PointP) -> PointP:

@@ -26,7 +26,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "e
 LIB_NAME = "libbn254.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-LAUNCHES = {"mont_mul": 0, "bfly": 0, "point_add": 0, "point_dbl": 0}
+LAUNCHES = {"mont_mul": 0, "bfly": 0, "point_add": 0, "point_dbl": 0, "scan_packed": 0,
+            "scan_steps": 0, "fold_lanes": 0, "dbl_pow2": 0, "horner": 0}
 
 _LIB = None
 
@@ -36,6 +37,11 @@ _SIGNATURES = {
     "ez_bfly": [_I, _VP, _VP, _VP, _LL, _I, _VP],
     "ez_point_add": [_VP] * 9 + [_LL, _VP],
     "ez_point_dbl": [_VP] * 6 + [_LL, _VP],
+    "ez_scan_packed": [_VP] * 6 + [_LL, _I, _VP],
+    "ez_scan_steps": [_I] + [_VP] * 6 + [_LL, _I, _VP],
+    "ez_fold_lanes": [_I] + [_VP] * 6 + [_LL, _I, _I, _VP],
+    "ez_dbl_pow2": [_VP] * 6 + [_LL, _I, _VP],
+    "ez_horner": [_VP] * 6 + [_I, _I, _LL, _VP],
 }
 
 
@@ -128,8 +134,9 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_card(name: str, *tensors, same_width: bool = True):
-    """The checks every kernel wrapper makes before it launches."""
+def require_card(name: str, *tensors, same_width: bool = True, ndim: int = 2):
+    """The checks every kernel wrapper makes before it launches: limb
+    tensors (8, *batch) of `ndim` dims, contiguous, on one card."""
     import torch
     dev = tensors[0].device
     for t in tensors:
@@ -137,7 +144,7 @@ def require_card(name: str, *tensors, same_width: bool = True):
             raise ValueError(f"{name}: all operands must be on one CUDA device")
         if t.dtype != torch.int32:
             raise ValueError(f"{name}: operands must be int32 limb tensors")
-        if t.dim() != 2 or t.shape[0] != 8 or not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous (8, n)")
-        if same_width and t.shape[1] != tensors[0].shape[1]:
-            raise ValueError(f"{name}: operand widths differ")
+        if t.dim() != ndim or t.shape[0] != 8 or not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous {ndim}-d (8, ...)")
+        if same_width and t.shape[1:] != tensors[0].shape[1:]:
+            raise ValueError(f"{name}: operand shapes differ")

@@ -1,18 +1,30 @@
-"""Pippenger multi-scalar multiplication over BN254 G1 (port of the unfused
-`msm_multi` of `ezkl_tpu/kernels/msm.py:326-437`).
+"""Pippenger multi-scalar multiplication over BN254 G1 (port of
+`ezkl_tpu/kernels/msm.py`).
 
-The same pipeline as the JAX package's: signed window digits, a sort of the
-digits, a gather of the points into digit order, a blocked inclusive prefix
-scan of point adds, bucket sums read at the bucket boundaries (telescoped:
-sum_b b*S_b = B*T - sum_b E[s_b]), a fold of those, and a Horner combine over
-the windows. Every group operation is one elementwise point add (K3) or one
-doubling (K9). The reference walks the windows one group at a time
-(`default_group` = 1); a group only changes the batching, not the result, so
-here all C*W windows of a call ride every sequential scan, fold and Horner
-step as one batch.
+Two pipelines compute the same sums; both run on either device:
 
-The result is a projective point; commitments decode it to affine, so the
-proof bytes do not depend on which MSM computed them.
+* `msm_multi` / `msm` -- the fused MSM, `_msm_multi_fused` of the JAX package
+  (`msm.py:504-625`), what the TPU runs. Every sequential chain is one
+  kernel launch: the S-step local prefix scan over the gathered points (K4
+  on packed affine points with a sign plane when `affine=True`, else K5 by
+  complete adds), the log recursion over the block totals (K5, combined by
+  K3), the per-window bucket fold (K6, finished by K3 halving adds), the
+  2^(c-1) doublings of the window totals (K7) and the Horner combine of the
+  windows (K8).
+* `msm_multi_unfused` -- the JAX package's non-TPU configuration
+  (`msm.py:326-437`): a blocked prefix scan, fold and Horner combine in
+  which every group operation is one elementwise point add (K3) or
+  doubling (K9).
+
+Both use signed window digits, a stable sort of the digits, a gather of the
+points into digit order, and bucket sums read at the bucket boundaries
+(telescoped: sum_b b*S_b = B*T - sum_b E[s_b]). The reference walks the
+windows one group at a time; a group only changes the batching, not the
+result, so here all C*W windows of a call ride every kernel as one batch.
+
+The result is a projective point; the two pipelines agree as affine points,
+and the fused one equals the JAX package's fused MSM bit for bit. Commitments
+decode to affine, so the proof bytes do not depend on which MSM ran.
 """
 
 from __future__ import annotations
@@ -24,8 +36,10 @@ import torch
 from ..fieldmath import curve, limbs
 from ..fieldmath.curve import PointP
 from ..fieldmath.spec import bn254_fr, NWORDS
+from . import pcurve
 
-_BLOCK = 32  # sequential steps per scan level
+_BLOCK = 32      # sequential steps per scan level of the unfused pipeline
+_FUSED_S = 128   # local-scan steps per lane of the fused pipeline
 
 
 def default_window_bits(n: int) -> int:
@@ -144,17 +158,107 @@ def _gather_last(p: PointP, idx: torch.Tensor) -> PointP:
     return p.map(lambda a: torch.gather(a, -1, e))
 
 
-def msm(points: PointP, scalars: torch.Tensor, c: int | None = None) -> PointP:
-    """sum_i scalars[i] * points[i]; points batch (N,), N a power of two
-    (identity lanes allowed), scalars (8, N) RAW Fr limbs. Returns a
+def msm(points: PointP, scalars: torch.Tensor, c: int | None = None,
+        affine: bool = False) -> PointP:
+    """sum_i scalars[i] * points[i] by the fused MSM; points batch (N,), N a
+    power of two (identity lanes (0:1:0) allowed; `affine=True` asserts
+    z == 1 on every other lane), scalars (8, N) RAW Fr limbs. Returns a
     projective PointP of batch ()."""
-    return msm_multi(points, scalars[None], c=c).map(lambda a: a[..., 0])
+    return msm_multi(points, scalars[None], c=c, affine=affine).map(lambda a: a[..., 0])
 
 
-def msm_multi(points: PointP, scalars: torch.Tensor, c: int | None = None) -> PointP:
-    """Batched-column MSM: out[t] = sum_i scalars[t, i] * points[i].
-    scalars: (C, 8, N) RAW limbs over a shared point set; returns PointP of
-    batch (C,)."""
+def _prefix_points_fused(p: PointP) -> PointP:
+    """Inclusive prefix of projective points along the LAST axis (any
+    leading batch axes): S-step scans (K5), a log recursion over the block
+    totals, and one combine add (K3) of the previous blocks' prefix, the
+    identity for the first block."""
+    m = p.x.shape[-1]
+    S = 32 if m <= 1024 else _FUSED_S
+    lead = p.x.shape[1:-1]
+    if m <= S:
+        out = pcurve.prefix_scan_steps(p.map(lambda a: a.reshape(NWORDS, -1, m)))
+        return out.map(lambda a: a.reshape(p.x.shape))
+    assert m % S == 0, f"prefix_points_fused: {m} % {S}"
+    local = pcurve.prefix_scan_steps(p.map(lambda a: a.reshape(NWORDS, -1, S)))
+    tp = _prefix_points_fused(local.map(lambda a: a[..., -1].reshape((NWORDS,) + lead + (m // S,))))
+    offs = tp.map(lambda a: torch.cat([torch.zeros_like(a[..., :1]), a[..., :-1]], -1))
+    first = (torch.arange(m // S, device=p.device) == 0).expand(offs.batch_shape)
+    offs = curve.select_point(first, curve.identity(offs.batch_shape, p.device), offs)
+    comb = curve.add(local, offs.map(lambda a: a.reshape(NWORDS, -1, 1).expand(local.x.shape)))
+    return comb.map(lambda a: a.reshape(p.x.shape))
+
+
+def msm_multi(points: PointP, scalars: torch.Tensor, c: int | None = None,
+              affine: bool = False) -> PointP:
+    """Batched-column MSM by the fused pipeline: out[t] = sum_i scalars[t, i]
+    * points[i]. scalars: (C, 8, N) RAW limbs over a shared point set, N a
+    power of two; returns PointP of batch (C,).
+
+    affine=True asserts z == 1 on every point but the identity lanes of
+    `pad_msm_inputs` (SRS bases): the scan then gathers only (x, y) and runs
+    mixed adds (K4), which reads an identity lane's pair (0, 1) as the
+    identity (the JAX package adds it as a point, and its sum is wrong)."""
+    C, _, n = scalars.shape
+    assert (n & (n - 1)) == 0, "msm: pad N to a power of two"
+    dev = points.device
+    if c is None:
+        c = default_window_bits(n)
+    digits, negs = extract_digits_signed(scalars.movedim(0, 1), c)   # (W, C, N)
+    W = digits.shape[0]
+    G = C * W                                                   # window g = col*W + w
+    d = digits.movedim(1, 0).reshape(G, n)
+    ng = negs.movedim(1, 0).reshape(G, n)
+    n_bound = 1 << (c - 1)
+    S = min(_FUSED_S, n)
+    lanes = G * (n // S)                 # scan lane (g, i): window g, points [i*S, (i+1)*S)
+
+    sorted_d, order = torch.sort(d, dim=-1, stable=True)
+    sn = torch.gather(ng, -1, order)
+    # gather straight into the step-major layout (8, S, lanes) of the scan
+    idx = order.reshape(G, n // S, S).permute(2, 0, 1).reshape(S, lanes)
+    sn_t = sn.reshape(G, n // S, S).permute(2, 0, 1).reshape(S, lanes)
+    if affine:
+        local = pcurve.scan_packed_steps(points.x[:, idx], points.y[:, idx],
+                                         sn_t.to(torch.int32))
+    else:
+        sp = points.map(lambda a: a[:, idx])
+        sp = PointP(sp.x, limbs.select(sn_t, curve.neg(sp).y, sp.y), sp.z)
+        local = pcurve.scan_steps(sp)
+    tot_incl = _prefix_points_fused(local.map(lambda a: a[:, S - 1].reshape(NWORDS, G, n // S)))
+    t_w = tot_incl.map(lambda a: a[..., -1])                    # (8, G)
+
+    queries = torch.arange(1, n_bound + 1, device=dev).expand(G, n_bound).contiguous()
+    starts = torch.searchsorted(sorted_d, queries)              # (G, B)
+    safe = starts.clamp(min=1) - 1
+    # prefix at sorted position `safe` of window g: step safe % S of lane
+    # g * (n/S) + safe // S
+    g_lane = torch.arange(G, device=dev)[:, None] * (n // S)
+    at = (safe % S) * lanes + g_lane + safe // S
+    e_loc = local.map(lambda a: a.reshape(NWORDS, -1)[:, at])   # (8, G, B)
+    blk = safe // S
+    e_off = _gather_last(tot_incl, blk.clamp(min=1) - 1)
+    e_off = curve.select_point(blk == 0, curve.identity(blk.shape, dev), e_off)
+    e_pts = curve.add(e_loc, e_off)
+    e_pts = curve.select_point(starts == 0, curve.identity(starts.shape, dev), e_pts)
+    # pad the B bucket sums to a fold-block multiple with identities; fold
+    fold_blk = 1024 if n_bound >= 2048 else 128
+    pad_to = -(-n_bound // fold_blk) * fold_blk
+    idp = curve.identity((G, pad_to - n_bound), dev)
+    e_pts = PointP(*(torch.cat([a, b], dim=-1) for a, b in zip(e_pts, idp)))
+    f_w = pcurve.reduce_pairwise(pcurve.fold_lanes(e_pts, blk=fold_blk))
+
+    # V_w = B*T_w - F_w = sum_b b * bucket_b over this window's B = 2^(c-1)
+    # buckets; Horner over the windows, MSB first
+    u = pcurve.dbl_pow2(t_w, c - 1)
+    v = curve.add(u, curve.neg(f_w)).map(lambda a: a.reshape(NWORDS, C, W))
+    v_msb = v.map(lambda a: a.flip(-1).movedim(-1, 1).contiguous())    # (8, W, C)
+    return pcurve.horner_combine(v_msb, c)
+
+
+def msm_multi_unfused(points: PointP, scalars: torch.Tensor, c: int | None = None) -> PointP:
+    """Batched-column MSM by the unfused pipeline (K3 and K9 per step):
+    out[t] = sum_i scalars[t, i] * points[i]. scalars: (C, 8, N) RAW limbs
+    over a shared point set; returns PointP of batch (C,)."""
     C, _, n = scalars.shape
     assert (n & (n - 1)) == 0, "msm: pad N to a power of two"
     dev = points.device

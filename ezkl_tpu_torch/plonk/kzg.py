@@ -1,7 +1,9 @@
 """KZG polynomial commitments and openings (port of `ezkl_tpu/plonk/kzg.py`,
 without the mesh branch).
 
-commit(evals over H) = iNTT then Pippenger MSM over the monomial SRS; opening
+commit(evals over H) = iNTT then the fused Pippenger MSM over the monomial SRS,
+whose points are affine (z = 1), so the MSM runs its mixed-add scan
+(`affine=True`), as the JAX package's commitments do; opening
 witnesses are computed in evaluation form, W = (p - p(z)) / (X - z) on H via
 one `batch_inv`; p(z) by the barycentric formula.
 """
@@ -28,7 +30,7 @@ def _commit_points(srs: SRS, vals: torch.Tensor, lagrange: bool) -> curve.PointP
     if lagrange:
         v = nttmod.intt(FR, v)
     raw = limbs.from_mont(FR, v)
-    return msmmod.msm_multi(pts, raw.movedim(1, 0), c=msmmod.default_window_bits(m))
+    return msmmod.msm_multi(pts, raw.movedim(1, 0), c=msmmod.default_window_bits(m), affine=True)
 
 
 def commit_coeff(srs: SRS, coeffs: torch.Tensor) -> curve.PointP:

@@ -7,6 +7,7 @@ oracle `hostcurve.g1_mul`."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
+import torch
 
 from ezkl_tpu.fieldmath import curve as ref_curve
 from ezkl_tpu.fieldmath import hostcurve as ref_host
@@ -17,6 +18,7 @@ from ezkl_tpu_torch.fieldmath import curve, limbs
 from ezkl_tpu_torch.fieldmath.spec import bn254_fr
 
 P = ref_host.P
+torch.set_num_threads(1)     # small tensors; pytest-xdist runs one worker per core
 
 
 def _projective(points, rng):

@@ -7,6 +7,7 @@ array for array)."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
+import torch
 
 from ezkl_tpu.fieldmath import limbs as ref
 from ezkl_tpu.fieldmath import spec as ref_spec
@@ -15,6 +16,7 @@ from ezkl_tpu_torch.fieldmath import limbs
 from ezkl_tpu_torch.fieldmath.spec import bn254_fq, bn254_fr
 
 N = 12
+torch.set_num_threads(1)     # small tensors; pytest-xdist runs one worker per core
 SPECS = {"fr": (bn254_fr(), ref_spec.bn254_fr()), "fq": (bn254_fq(), ref_spec.bn254_fq())}
 
 

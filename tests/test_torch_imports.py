@@ -3,9 +3,11 @@
 * neither the package nor its card scripts (`chip_smoke.py`,
   `tools/profile_torch_prove.py`) import `jax` or the JAX package
   `ezkl_tpu` (checked on the source with `ast`);
-* every kernel wrapper (K1 mont_mul, K2 bfly, K3 point_add, K9 point_dbl)
-  raises when its kernel cannot be built, instead of falling back to the
-  plain version; and a tensor on the card always takes the kernel route.
+* every kernel wrapper (K1 mont_mul, K2 bfly, K3 point_add, K9 point_dbl,
+  and the fused MSM's K4 scan_packed, K5 scan_steps and K6 fold_lanes in
+  both variants, K7 dbl_pow2, K8 horner) raises when its kernel cannot be
+  built, instead of falling back to the plain version; and a tensor on the
+  card always takes the kernel route.
 
 No card is needed: the build is mocked.
 """
@@ -19,11 +21,12 @@ import torch
 
 from ezkl_tpu_torch.fieldmath import curve, limbs
 from ezkl_tpu_torch.fieldmath.spec import bn254_fr
-from ezkl_tpu_torch.kernels import build, pcurve, pntt
+from ezkl_tpu_torch.kernels import build, msm, pcurve, pntt
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "ezkl_tpu")
 FR = bn254_fr()
+torch.set_num_threads(1)     # small tensors; pytest-xdist runs one worker per core
 
 
 def _sources():
@@ -61,11 +64,34 @@ def _points(n=4):
     return curve.generator((n,), "cpu")
 
 
+def _grid(*shape):
+    """Points of batch `shape`: (S, m) step-major scans, (G, n) folds,
+    (W, width) Horner windows."""
+    return curve.generator(shape, "cpu")
+
+
+def _signs(*shape):
+    return torch.zeros(shape, dtype=torch.int32)
+
+
+def _msm_call():
+    pts = _points(16)
+    scalars = limbs.to_device(limbs.encode(FR, [list(range(1, 17))], mont=False), "cpu")
+    return msm.msm_multi(pts, scalars.movedim(1, 0), c=3, affine=True)
+
+
 KERNEL_CALLS = {
     "mont_mul": lambda: limbs._mont_mul_kernel(FR, _field(), _field()),
     "bfly": lambda: pntt._bfly_kernel(FR, _field(), _field(1)),
     "point_add": lambda: pcurve._launch("point_add", "ez_point_add", (*_points(), *_points())),
     "point_dbl": lambda: pcurve._launch("point_dbl", "ez_point_dbl", tuple(_points())),
+    "scan_packed": lambda: pcurve._scan_packed_kernel(_grid(2, 4).x, _grid(2, 4).y, _signs(2, 4)),
+    "scan_steps_complete": lambda: pcurve._scan_steps_kernel(_grid(2, 4)),
+    "scan_steps_mixed": lambda: pcurve._scan_steps_kernel(tuple(_grid(2, 4))[:2]),
+    "fold_lanes_complete": lambda: pcurve._fold_lanes_kernel(_grid(2, 256), 128),
+    "fold_lanes_mixed": lambda: pcurve._fold_lanes_kernel(tuple(_grid(2, 256))[:2], 128),
+    "dbl_pow2": lambda: pcurve._dbl_pow2_kernel(_points(), 3),
+    "horner": lambda: pcurve._horner_kernel(_grid(3, 2), 3),
 }
 
 PUBLIC_CALLS = {
@@ -73,6 +99,14 @@ PUBLIC_CALLS = {
     "bfly": lambda: pntt.bfly(FR, _field(), _field(1)),
     "point_add": lambda: curve.add(_points(), _points()),
     "point_dbl": lambda: curve.dbl(_points()),
+    "scan_packed": lambda: pcurve.prefix_scan_packed(_grid(4, 2).x, _grid(4, 2).y, _signs(4, 2)),
+    "scan_steps_complete": lambda: pcurve.prefix_scan_steps(_grid(4, 2)),
+    "scan_steps_mixed": lambda: pcurve.prefix_scan_steps(tuple(_grid(4, 2))[:2]),
+    "fold_lanes_complete": lambda: pcurve.fold_lanes(_grid(2, 256), blk=128),
+    "fold_lanes_mixed": lambda: pcurve.fold_lanes(tuple(_grid(2, 256))[:2], blk=128),
+    "dbl_pow2": lambda: pcurve.dbl_pow2(_points(), 3),
+    "horner": lambda: pcurve.horner_combine(_grid(3, 2), 3),
+    "msm_multi": _msm_call,
 }
 
 
@@ -122,3 +156,5 @@ def test_cuh_constants_match_the_field_specs():
         assert value(words[0]) == spec.modulus
         assert value(words[1]) == 2 * spec.modulus
         assert (inv * spec.modulus) % (1 << 32) == (1 << 32) - 1
+        if len(words) > 2:                                   # Montgomery one, R mod p
+            assert value(words[2]) == (1 << 256) % spec.modulus

@@ -1,11 +1,15 @@
-"""The port's unfused Pippenger MSM (`ezkl_tpu_torch.kernels.msm`, every group
-operation K3 or K9 through the plain versions on the CPU) against the JAX
-package's host oracle `ezkl_tpu.fieldmath.hostcurve.g1_msm`: the cases of
-`tests/test_msm.py` and `tests/test_pallas_interpret.py:45-77`. Tolerance:
+"""The port's Pippenger MSM (`ezkl_tpu_torch.kernels.msm`, through the plain
+versions of its kernels on the CPU) against the JAX package's host oracle
+`ezkl_tpu.fieldmath.hostcurve.g1_msm`: the cases of `tests/test_msm.py` and
+`tests/test_pallas_interpret.py:45-77`. `msm`/`msm_multi` are the fused
+pipeline (K4-K8, `tests/test_torch_fused_msm.py` holds it bit-exact to the JAX
+package); the blocked-scan cases drive the unfused one
+(`msm_multi_unfused`, every group operation K3 or K9). Tolerance:
 affine-equal results (projective MSM outputs are not unique)."""
 
 import numpy as np
 import pytest
+import torch
 import jax.numpy as jnp
 
 from ezkl_tpu.fieldmath import hostcurve as ref_host
@@ -19,6 +23,7 @@ from ezkl_tpu_torch.kernels import msm
 
 FR = bn254_fr()
 RNG = np.random.default_rng(77)
+torch.set_num_threads(1)     # small tensors; pytest-xdist runs one worker per core
 
 
 def _points(n):
@@ -29,11 +34,14 @@ def _scalars(n):
     return [int.from_bytes(RNG.bytes(32), "little") % FR.modulus for _ in range(n)]
 
 
-def _run(points, scalars, c=None):
+def _run(points, scalars, c=None, unfused=False):
     P = curve.encode_points(points, "cpu")
     S = limbs.to_device(limbs.encode(FR, scalars, mont=False), "cpu")
     P, S = msm.pad_msm_inputs(P, S)
-    out = msm.msm(P, S, c=c)
+    if unfused:
+        out = msm.msm_multi_unfused(P, S[None], c=c).map(lambda a: a[..., 0])
+    else:
+        out = msm.msm(P, S, c=c)
     return curve.decode_points(out.map(lambda a: a[..., None]))[0]
 
 
@@ -51,7 +59,7 @@ def test_msm_blocked_scan_matches_host(monkeypatch, n, block):
     if block:
         monkeypatch.setattr(msm, "_BLOCK", block)
     pts, sc = _points(n), _scalars(n)
-    assert _run(pts, sc, c=5) == ref_host.g1_msm(pts, sc)
+    assert _run(pts, sc, c=5, unfused=True) == ref_host.g1_msm(pts, sc)
 
 
 def test_prefix_scan_points_recursive_matches_host():

@@ -7,6 +7,7 @@ Montgomery limbs, so equal integers are equal arrays)."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
+import torch
 
 from ezkl_tpu.fieldmath import limbs as ref_limbs
 from ezkl_tpu.fieldmath.spec import bn254_fr as ref_fr
@@ -17,6 +18,7 @@ from ezkl_tpu_torch.fieldmath.spec import bn254_fr
 from ezkl_tpu_torch.kernels import ntt, pntt
 
 FR = bn254_fr()
+torch.set_num_threads(1)     # small tensors; pytest-xdist runs one worker per core
 P = FR.modulus
 
 

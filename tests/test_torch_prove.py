@@ -15,6 +15,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 from ezkl_tpu.plonk import cs as ref_cs
 from ezkl_tpu.plonk import keygen as ref_keygen
@@ -30,6 +31,7 @@ import torch_port_circuits as circuits
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures" / "torch_port"
 K = circuits.K
+torch.set_num_threads(1)     # small tensors; pytest-xdist runs one worker per core
 
 
 def _load(name):

@@ -19,6 +19,8 @@ them, then one JSON line:
   phases          per prover phase (`prover._span` ranges): wall_s, busy_s,
                   device_ops
   top             device operations by total time: name, count, total_ms
+  launches        kernel launches of the timed create_proof (`build.LAUNCHES`)
+  point_launches  the point kernels' share of them (K3-K9)
 
 Needs one CUDA card and exits non-zero without one, or when the profiler
 records no device activity.
@@ -102,7 +104,9 @@ def main() -> int:
         return time.perf_counter() - t0
 
     prove()                                        # warm-up
+    build.reset_launches()
     wall = prove()
+    launches = dict(build.LAUNCHES)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         profiled_wall = prove()
@@ -111,7 +115,8 @@ def main() -> int:
     chip_smoke.emit({"phase": "profile", "k": args.k, "wall_s": wall,
                      "profiled_wall_s": profiled_wall, "device_busy_s": busy,
                      "busy_share": busy / profiled_wall, "busy_share_of_wall": busy / wall,
-                     "phases": phases, "top": top,
+                     "phases": phases, "top": top, "launches": launches,
+                     "point_launches": sum(launches[k] for k in chip_smoke.POINT_KERNELS),
                      "device": torch.cuda.get_device_name(0)})
     return 0
 
