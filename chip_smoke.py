@@ -14,14 +14,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               combine) against its plain PyTorch version on the card,
               bit-exact, on seeded inputs plus edge values (identities, the
               pad pair and both signs for K4), at the main path's shapes
-              (K1 also with its broadcast operand forms); timed as device
-              time per launch
-              (`ms`: launches replayed from a CUDA graph, cycling over
-              copies of the inputs that overflow the L2, so operands come
-              from HBM as `bound_ms` assumes; `l2_ms`: the same launch
-              repeated on one set of inputs, which then sits in L2), as
-              eager calls from Python (`eager_ms`) and, for the plain
-              version, eagerly (`plain_ms`)
+              (K1 also with its broadcast operand forms; K4 also over a
+              ragged lane count and at every team size; K8 also at one
+              column, at one window of one doubling and on identities only);
+              timed as device time per launch (`ms`: launches replayed
+              from a CUDA graph, cycling over copies of the inputs that
+              overflow the L2, so operands come from HBM as `bound_ms`
+              assumes; `l2_ms`: the same launch repeated on one set of
+              inputs, which then sits in L2), as eager calls from Python
+              (`eager_ms`) and, for the plain version, eagerly (`plain_ms`)
 4. prove   -- the main path at k = 14: gen_srs, keygen, create_proof(seed=1)
               of a circuit with a multiplication gate, a 256-entry lookup,
               copy constraints into the instance and a shuffle, filled over
@@ -329,7 +330,9 @@ def _set(coords, mask, values):
 def check_msm_kernels(dev, rng):
     """K4-K8 against their plain versions at the k = 14 main path's shapes,
     bit-exact, with edge lanes; one `kernel` line each (both variants of K5
-    and K6, K4 at C = 1 and C = 8). Returns the rows at C = 8."""
+    and K6; K4 at C = 1, 2, 4 and 8 and over a ragged 1,001 lanes, each
+    also at every team size; K8 also at one column, at W = 1 with c = 1 and with
+    every V_w the identity). Returns the rows at C = 8."""
     import torch
     from ezkl_tpu_torch.fieldmath import curve, limbs
     from ezkl_tpu_torch.fieldmath.spec import bn254_fq
@@ -355,22 +358,56 @@ def check_msm_kernels(dev, rng):
         return torch_index(rng.integers(0, P.x.shape[1], size=shape), dev)
 
     mm = IMAD_PER_MONT_MUL
-    for C in (1, 8):
-        # K4: lanes of 128 steps; pad pairs (0, 1) at a first step, a later
-        # step and over a whole lane; both signs
-        L = C * MSM_W * MSM_N // MSM_S
+
+    def scan_inputs(L):
+        """K4's inputs over L lanes of 128 steps: pad pairs (0, 1) at a first
+        step, a later step, over a whole lane and in the last lane; both
+        signs. Returns them with the count of adds they need."""
         x, y = _gather((ax, ay), rand_idx(MSM_S, L))
         pad = torch.zeros(MSM_S, L, dtype=torch.bool, device=dev)
-        pad[0, 0] = pad[5, 1] = True
+        pad[0, 0] = pad[5, 1] = pad[7, L - 1] = True
         pad[:, 2] = True
         x, y = _set((x, y), pad, (zero, one))
         sn = torch_index(rng.integers(0, 2, size=(MSM_S, L)), dev).to(torch.int32)
-        adds = int((~pad[1:]).sum())
+        return [x, y, sn], int((~pad[1:]).sum())
+
+    def scan_teams(inputs, L, **extra):
+        """K4 at every team size on one input: bit-exact, device times."""
+        want = pcurve.scan_packed_plain(*inputs)
+        nbytes, imad = (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * extra.pop("adds")
+        for team in pcurve.SCAN_TEAMS:
+            kern = lambda *t: pcurve._scan_packed_launch(*t, team)      # noqa: E731
+            err = max_abs_err(kern(*inputs), want)
+            row = dict(max_abs_err=err, team=team, lanes=L, steps=MSM_S, **extra,
+                       ms=device_ms(kern, inputs, reps=5),
+                       l2_ms=device_ms(kern, inputs, cold=False, reps=5))
+            row["bound_ms"], row["bound_by"] = bound(nbytes, imad)
+            emit({"phase": "kernel", "kernel": "scan_packed", "team_sweep": True, **row})
+            if err:
+                raise AssertionError(f"scan_packed kernel != plain (team {team}, {extra})")
+
+    for C in (1, 2, 4, 8):
+        # K4 at the lanes of the prove's commitments (C = 1 to 8 columns),
+        # with the team `scan_packed_team` picks, then at every team size
+        L = C * MSM_W * MSM_N // MSM_S
+        inputs, adds = scan_inputs(L)
         row = run("scan_packed", pcurve._scan_packed_kernel, pcurve.scan_packed_plain,
-                  [x, y, sn], (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * adds,
-                  reps=20 if C == 1 else 5, columns=C, lanes=L, steps=MSM_S)
-        del x, y, sn, pad
+                  inputs, (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * adds,
+                  reps=20 if C == 1 else 5, columns=C, lanes=L, steps=MSM_S,
+                  team=pcurve.scan_packed_team(L))
+        scan_teams(inputs, L, columns=C, adds=adds)
+        del inputs
     rows["scan_packed"] = row
+    # K4 over a lane count that is no multiple of any team size's lanes per
+    # block (the ragged last block)
+    L = 1001
+    inputs, adds = scan_inputs(L)
+    run("scan_packed", pcurve._scan_packed_kernel, pcurve.scan_packed_plain, inputs,
+        (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * adds, reps=20, lanes=L, steps=MSM_S,
+        team=pcurve.scan_packed_team(L))
+    scan_teams(inputs, L, adds=adds)
+    del inputs
+
     C = 8
     G = C * MSM_W
 
@@ -415,14 +452,24 @@ def check_msm_kernels(dev, rng):
                            lambda *t: pcurve.dbl_pow2_plain(curve.PointP(*t), 9),
                            list(T), 6 * 32 * G, 9 * 8 * mm * G, lanes=G, c=9)
 
-    # K8: W = 26 windows at c = 10 over C columns
+    # K8: W = 26 windows at c = 10 over C columns; then one column, one
+    # window of one doubling, and every V_w the identity
+    def horner(W, c, width, mask, **extra):
+        V = _set(_gather(P, rand_idx(W, width)), mask, ident)
+        return run("horner", lambda *t: pcurve._horner_kernel(curve.PointP(*t), c),
+                   lambda *t: pcurve.horner_plain(curve.PointP(*t), c),
+                   list(V), 3 * 32 * (W + 1) * width, W * (c * 8 + 12) * mm * width,
+                   windows=W, c=c, width=width, **extra)
+
     mask = torch.zeros(MSM_W, C, dtype=torch.bool, device=dev)
     mask[0, 0] = mask[3, 2] = True
-    V = _set(_gather(P, rand_idx(MSM_W, C)), mask, ident)
-    rows["horner"] = run("horner", lambda *t: pcurve._horner_kernel(curve.PointP(*t), MSM_C),
-                         lambda *t: pcurve.horner_plain(curve.PointP(*t), MSM_C),
-                         list(V), 3 * 32 * (MSM_W + 1) * C,
-                         MSM_W * (MSM_C * 8 + 12) * mm * C, windows=MSM_W, c=MSM_C, width=C)
+    rows["horner"] = horner(MSM_W, MSM_C, C, mask)
+    mask = torch.zeros(MSM_W, 1, dtype=torch.bool, device=dev)
+    mask[3, 0] = True
+    horner(MSM_W, MSM_C, 1, mask)
+    horner(1, 1, C, torch.zeros(1, C, dtype=torch.bool, device=dev))
+    horner(MSM_W, MSM_C, C, torch.ones(MSM_W, C, dtype=torch.bool, device=dev),
+           all_identity=True)
     return rows
 
 
@@ -618,7 +665,7 @@ def main() -> int:
          "library_ms": None,
          "shape": {k: v for k, v in rows[name].items()
                    if k in ("n", "lanes", "steps", "groups", "chunks", "blk", "c",
-                            "windows", "width", "columns")}}
+                            "windows", "width", "columns", "team")}}
         for name, (src, rep) in KERNEL_META.items()],
         "create_proof_point_dbl_launches": launches["point_dbl"],
         "unfused_msm_point_dbl_launches": unfused_launches["point_dbl"]})

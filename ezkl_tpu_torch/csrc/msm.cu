@@ -37,12 +37,18 @@
 // widths of C*W and C lanes (a few hundred and at most 16 at k = 14): far too
 // few threads to fill the card, so each is bound by the latency of its
 // dependent chain (K8 at k = 14: 26 windows x (10 doublings + 1 add)).
-// Design, for this first version: one thread per lane, the whole step loop
-// inside the kernel so the carried point never leaves registers, and narrow
-// blocks so that the few thousand lanes of a k = 14 scan spread over all
-// SMs. Step-major layouts (8, S, m) -- element (limb i, step s, lane l) at
-// (i * S + s) * m + l -- make the lanes of one step contiguous, so the loads
-// and stores of a warp coalesce; the MSM's gather writes that layout directly.
+// Design: the whole step loop inside the kernel, so the carried point never
+// leaves registers. K5-K7 run one thread per lane in narrow blocks, so that
+// the lanes of a k = 14 scan spread over all SMs. K4 and K8 run a team of
+// threads per lane or column (bn254.cuh, "teams"): the products of each
+// level of a formula side by side, so a chain's critical path is 2-6
+// products per point operation instead of 8-12. A team repeats the adds
+// between the levels in each of its threads, so K4 takes a smaller team
+// where many lanes already fill the card (`pcurve.scan_packed_team`); K8's
+// few columns take teams of 8, one per block. Step-major layouts (8, S, m)
+// -- element (limb i, step s, lane l) at (i * S + s) * m + l -- make the
+// lanes of one step contiguous, so the loads and stores of a warp coalesce;
+// the MSM's gather writes that layout directly.
 
 #include <cuda_runtime.h>
 
@@ -53,7 +59,15 @@ using namespace bn254;
 namespace {
 
 constexpr int kScanThreads = 64;
+// Threads per block of K4 with teams of T: blocks of 4 lanes for teams of 8,
+// so that a few thousand lanes still spread evenly over the 132 SMs, and of
+// 64 lanes for teams of 2 (measured, PERF.md).
+template <int T>
+__host__ __device__ constexpr int team_block() {
+  return T == 8 ? 32 : 128;
+}
 constexpr int kChainThreads = 32;
+constexpr int kHornerTeam = 8;
 
 __device__ __forceinline__ Fe fq_one() {
   Fe r;
@@ -72,11 +86,12 @@ __device__ __forceinline__ Fe fe_zero() {
 // p - y by a raw subtraction, as the TPU kernel (`pcurve.py:347-349`): in
 // (0, p] for y < p, which the lazy domain accepts.
 __device__ __forceinline__ Fe neg_raw(const Fe& y) {
-  Fe p;
+  uint32_t cf = 0;
+  Fe r;
+  r.v[0] = sub_cc(Fq::p(0), y.v[0], cf);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) p.v[i] = Fq::p(i);
-  uint32_t borrow;
-  return sub_limbs(p, y, borrow);
+  for (int i = 1; i < 8; ++i) r.v[i] = subc_cc(Fq::p(i), y.v[i], cf);
+  return r;
 }
 
 __device__ __forceinline__ void store_point(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
@@ -108,15 +123,14 @@ __device__ __forceinline__ bool is_pad_pair(const Fe& x, const Fe& y) {
   return pad;
 }
 
-// K4 (Signed) and K5: inputs and outputs step-major (8, S, m). Step 0 loads
-// the first point (z = 1 for affine inputs); each later step adds the next;
-// every step's prefix is stored.
-template <bool Mixed, bool Signed>
+// K5: inputs and outputs step-major (8, S, m). Step 0 loads the first point
+// (z = 1 for affine inputs); each later step adds the next; every step's
+// prefix is stored.
+template <bool Mixed>
 __global__ void __launch_bounds__(kScanThreads)
     scan_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-                const uint32_t* __restrict__ z, const int32_t* __restrict__ sn,
-                uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
-                long long m, int steps) {
+                const uint32_t* __restrict__ z, uint32_t* __restrict__ ox,
+                uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, long long m, int steps) {
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= m) return;
   const long long stride = m * steps;
@@ -124,18 +138,69 @@ __global__ void __launch_bounds__(kScanThreads)
   for (int s = 0; s < steps; ++s) {
     const long long j = (long long)s * m + l;
     const Fe X2 = load(x, stride, j);
-    Fe Y2 = load(y, stride, j);
-    const bool pad = Signed && is_pad_pair(X2, Y2);
-    if (Signed && sn[j] != 0) Y2 = neg_raw(Y2);
+    const Fe Y2 = load(y, stride, j);
     const Fe Z2 = Mixed ? fq_one() : load(z, stride, j);
     if (s == 0) {
       X = X2;
       Y = Y2;
-      Z = pad ? fe_zero() : Z2;
-    } else if (!pad) {
+      Z = Z2;
+    } else {
       accumulate<Mixed>(X, Y, Z, X2, Y2, Z2);
     }
     store_point(ox, oy, oz, stride, j, X, Y, Z);
+  }
+}
+
+template <int T>
+__device__ __forceinline__ void team_store_point(const Team<T>& tm, uint32_t* __restrict__ ox,
+                                                 uint32_t* __restrict__ oy,
+                                                 uint32_t* __restrict__ oz, long long stride,
+                                                 long long j, const Fe& X, const Fe& Y,
+                                                 const Fe& Z) {
+  team_store(tm, ox, stride, j, reduce_cc<Fq>(X));
+  team_store(tm, oy, stride, j, reduce_cc<Fq>(Y));
+  team_store(tm, oz, stride, j, reduce_cc<Fq>(Z));
+}
+
+// K4: px, py, sn and the outputs step-major (8, S, m); a team of T threads
+// per lane, team_block<T>() / T lanes per block. Every thread of the team
+// loads the step's point (the team's loads of one word are one broadcast),
+// runs the mixed add with the team and stores its limbs of the canonical
+// prefix. A pad pair is the identity: Z = 0 at step 0; later the add is
+// computed and dropped, so that the team's threads stay in step.
+template <int T>
+__global__ void __launch_bounds__(team_block<T>())
+    scan_packed_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                       const int32_t* __restrict__ sn, uint32_t* __restrict__ ox,
+                       uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, long long m,
+                       int steps) {
+  constexpr int kTeams = team_block<T>() / T;
+  __shared__ TeamSlots<T, kTeams> slots;
+  const long long l = (long long)blockIdx.x * kTeams + threadIdx.x / T;
+  if (l >= m) return;  // the whole team: l is the same in its threads
+  const Team<T> tm = make_team(slots);
+  const long long stride = m * steps;
+  Fe X, Y, Z;
+  for (int s = 0; s < steps; ++s) {
+    const long long j = (long long)s * m + l;
+    const Fe X2 = load(px, stride, j);
+    Fe Y2 = load(py, stride, j);
+    const bool pad = is_pad_pair(X2, Y2);
+    if (sn[j] != 0) Y2 = neg_raw(Y2);
+    if (s == 0) {
+      X = X2;
+      Y = Y2;
+      Z = pad ? fe_zero() : fq_one();
+    } else {
+      Fe X3, Y3, Z3;
+      team_mixed_add<Fq>(tm, X, Y, Z, X2, Y2, X3, Y3, Z3);
+      if (!pad) {
+        X = X3;
+        Y = Y3;
+        Z = Z3;
+      }
+    }
+    team_store_point(tm, ox, oy, oz, stride, j, X, Y, Z);
   }
 }
 
@@ -190,36 +255,64 @@ __global__ void __launch_bounds__(kChainThreads)
   store_point(ox, oy, oz, n, j, X, Y, Z);
 }
 
-// K8: v (8, W, width), MSB window first -> (8, width).
-__global__ void __launch_bounds__(kChainThreads)
+// K8: v (8, W, width), MSB window first -> (8, width); one team of
+// kHornerTeam threads per column, one column per block, so that no two
+// chains share a warp.
+__global__ void __launch_bounds__(kHornerTeam)
     horner_kernel(const uint32_t* __restrict__ vx, const uint32_t* __restrict__ vy,
                   const uint32_t* __restrict__ vz, uint32_t* __restrict__ ox,
                   uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int windows, int c,
                   long long width) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= width) return;
+  __shared__ TeamSlots<kHornerTeam, 1> slots;
+  const long long j = blockIdx.x;
+  const Team<kHornerTeam> tm = make_team(slots);
   const long long stride = (long long)windows * width;
   Fe X = fe_zero(), Y = fq_one(), Z = fe_zero();
   for (int w = 0; w < windows; ++w) {
-    dbl_n(X, Y, Z, c);
+    for (int k = 0; k < c; ++k) {
+      Fe X3, Y3, Z3;
+      team_dbl<Fq>(tm, X, Y, Z, X3, Y3, Z3);
+      X = X3;
+      Y = Y3;
+      Z = Z3;
+    }
     const long long e = (long long)w * width + j;
-    accumulate<false>(X, Y, Z, load(vx, stride, e), load(vy, stride, e), load(vz, stride, e));
+    Fe X3, Y3, Z3;
+    team_complete_add<Fq>(tm, X, Y, Z, load(vx, stride, e), load(vy, stride, e),
+                          load(vz, stride, e), X3, Y3, Z3);
+    X = X3;
+    Y = Y3;
+    Z = Z3;
   }
-  store_point(ox, oy, oz, width, j, X, Y, Z);
+  team_store_point(tm, ox, oy, oz, width, j, X, Y, Z);
 }
 
 inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+template <int T>
+void launch_scan_packed(const uint32_t* px, const uint32_t* py, const int32_t* sn, uint32_t* ox,
+                        uint32_t* oy, uint32_t* oz, long long m, int steps, cudaStream_t s) {
+  scan_packed_kernel<T><<<blocks_for(m, team_block<T>() / T), team_block<T>(), 0, s>>>(
+      px, py, sn, ox, oy, oz, m, steps);
+}
+
 }  // namespace
 
 // Every entry returns cudaGetLastError() after its launch.
+
+// team: threads per lane, 2 or 8 (`pcurve.scan_packed_team` chooses)
 extern "C" int ez_scan_packed(const uint32_t* px, const uint32_t* py, const int32_t* sn,
                               uint32_t* ox, uint32_t* oy, uint32_t* oz, long long m, int steps,
-                              void* stream) {
-  scan_kernel<true, true><<<blocks_for(m, kScanThreads), kScanThreads, 0,
-                            (cudaStream_t)stream>>>(px, py, nullptr, sn, ox, oy, oz, m, steps);
+                              int team, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (team == 2)
+    launch_scan_packed<2>(px, py, sn, ox, oy, oz, m, steps, s);
+  else if (team == 8)
+    launch_scan_packed<8>(px, py, sn, ox, oy, oz, m, steps, s);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -230,10 +323,9 @@ extern "C" int ez_scan_steps(int mixed, const uint32_t* x, const uint32_t* y, co
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned b = blocks_for(m, kScanThreads);
   if (mixed)
-    scan_kernel<true, false><<<b, kScanThreads, 0, s>>>(x, y, nullptr, nullptr, ox, oy, oz, m,
-                                                        steps);
+    scan_kernel<true><<<b, kScanThreads, 0, s>>>(x, y, nullptr, ox, oy, oz, m, steps);
   else
-    scan_kernel<false, false><<<b, kScanThreads, 0, s>>>(x, y, z, nullptr, ox, oy, oz, m, steps);
+    scan_kernel<false><<<b, kScanThreads, 0, s>>>(x, y, z, ox, oy, oz, m, steps);
   return (int)cudaGetLastError();
 }
 
@@ -259,7 +351,7 @@ extern "C" int ez_dbl_pow2(const uint32_t* x, const uint32_t* y, const uint32_t*
 extern "C" int ez_horner(const uint32_t* vx, const uint32_t* vy, const uint32_t* vz,
                          uint32_t* ox, uint32_t* oy, uint32_t* oz, int windows, int c,
                          long long width, void* stream) {
-  horner_kernel<<<blocks_for(width, kChainThreads), kChainThreads, 0, (cudaStream_t)stream>>>(
-      vx, vy, vz, ox, oy, oz, windows, c, width);
+  horner_kernel<<<(unsigned)width, kHornerTeam, 0, (cudaStream_t)stream>>>(vx, vy, vz, ox, oy, oz,
+                                                                         windows, c, width);
   return (int)cudaGetLastError();
 }

@@ -340,6 +340,7 @@ def _mont_mul_kernel(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch
         build.check(lib.ez_mont_mul(_FIELD_ID[spec.name], a2.data_ptr(), b2.data_ptr(),
                                     out.data_ptr(), n, *form, build.stream_of(a2)), "mont_mul")
         build.LAUNCHES["mont_mul"] += 1
+        build.WIDTHS.append(("mont_mul", spec.name, n))
     return out.reshape(shape)
 
 

@@ -9,11 +9,13 @@ Nothing here falls back: a missing `nvcc` or a failed build raises.
 
 `LAUNCHES` counts the kernel launches of each wrapper: a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. `WIDTHS` keeps, beside it, the width of
+each K1 and K2 launch, so a run can also show how wide they were.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -29,6 +31,11 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LAUNCHES = {"mont_mul": 0, "bfly": 0, "point_add": 0, "point_dbl": 0, "scan_packed": 0,
             "scan_steps": 0, "fold_lanes": 0, "dbl_pow2": 0, "horner": 0}
 
+# (kernel, field, elements) of every K1 (`mont_mul`) and K2 (`bfly`) launch
+# since the last `reset_launches`, in launch order; bounded (a k = 14 prove
+# makes about 6,000 of them).
+WIDTHS: collections.deque = collections.deque(maxlen=1 << 16)
+
 _LIB = None
 
 _VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -37,7 +44,7 @@ _SIGNATURES = {
     "ez_bfly": [_I, _VP, _VP, _VP, _LL, _I, _VP],
     "ez_point_add": [_VP] * 9 + [_LL, _VP],
     "ez_point_dbl": [_VP] * 6 + [_LL, _VP],
-    "ez_scan_packed": [_VP] * 6 + [_LL, _I, _VP],
+    "ez_scan_packed": [_VP] * 6 + [_LL, _I, _I, _VP],
     "ez_scan_steps": [_I] + [_VP] * 6 + [_LL, _I, _VP],
     "ez_fold_lanes": [_I] + [_VP] * 6 + [_LL, _I, _I, _VP],
     "ez_dbl_pow2": [_VP] * 6 + [_LL, _I, _VP],
@@ -48,6 +55,18 @@ _SIGNATURES = {
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    WIDTHS.clear()
+
+
+def width_histogram(widths=None) -> dict:
+    """Launches per kernel, field and power-of-two width (the least power of
+    two >= the launch's element count), from `WIDTHS`:
+    {"mont_mul/bn254_fr": {"2^14": count, ...}, ...}."""
+    hist = collections.defaultdict(collections.Counter)
+    for name, field, n in WIDTHS if widths is None else widths:
+        hist[f"{name}/{field}"][f"2^{(n - 1).bit_length()}"] += 1
+    return {k: dict(sorted(v.items(), key=lambda kv: int(kv[0][2:])))
+            for k, v in sorted(hist.items())}
 
 
 def _sources():

@@ -236,9 +236,29 @@ def scan_packed_plain(px, py, sn) -> PointP:
     return _chain_plain((limbs._w(px), limbs._w(y)), 0, mixed=True, every=True, skip=pad)
 
 
-def _scan_packed_kernel(px, py, sn) -> PointP:
+# K4 runs a team of 8 or 2 threads per lane (`csrc/msm.cu`). The larger team
+# shortens a lane's chain but repeats the adds between the products in every
+# thread: it pays where few lanes leave the card idle, the smaller one where
+# many lanes fill it. The limit is from the H100 sweep at 1,001 and 3,328 to
+# 26,624 lanes in `chip_smoke.py` (PERF.md, K4's row); teams of 4 were never
+# the fastest there.
+SCAN_TEAMS = (2, 8)
+SCAN_TEAM8_LANES = 4096
+
+
+def scan_packed_team(m: int) -> int:
+    """Threads per lane of K4 for m lanes."""
+    return 8 if m <= SCAN_TEAM8_LANES else 2
+
+
+def _scan_packed_launch(px, py, sn, team: int) -> PointP:
     S, m = px.shape[1:]
-    return _kernel("scan_packed", "ez_scan_packed", (px, py), (S, m), post=(m, S), sign=sn)
+    return _kernel("scan_packed", "ez_scan_packed", (px, py), (S, m), post=(m, S, team),
+                   sign=sn)
+
+
+def _scan_packed_kernel(px, py, sn) -> PointP:
+    return _scan_packed_launch(px, py, sn, scan_packed_team(px.shape[2]))
 
 
 def scan_packed_steps(px, py, sn) -> PointP:

@@ -189,3 +189,11 @@ def test_scan_packed_treats_the_pad_pair_as_identity():
             acc = hostcurve.g1_add(acc, hostcurve.g1_neg(p) if sn[lane, s] else p)
             want.append(acc)
     assert got == want
+
+
+def test_scan_packed_team_sizes():
+    """K4's threads per lane: 8 up to 4,096 lanes, 2 above, so that at k = 14
+    one column (3,328 lanes) takes 8 and two to eight (6,656-26,624) 2."""
+    teams = [pcurve.scan_packed_team(m) for m in (1, 1001, 3328, 4096, 4097, 6656, 26624)]
+    assert teams == [8, 8, 8, 8, 2, 2, 2]
+    assert all(t in pcurve.SCAN_TEAMS for t in teams)

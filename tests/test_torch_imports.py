@@ -114,10 +114,11 @@ PUBLIC_CALLS = {
 def test_kernel_route_raises_when_the_build_fails(monkeypatch, name):
     monkeypatch.setattr(build, "_LIB", None)
     monkeypatch.setattr(build, "build", _no_nvcc)
-    before = dict(build.LAUNCHES)
+    before, widths = dict(build.LAUNCHES), list(build.WIDTHS)
     with pytest.raises(RuntimeError, match="nvcc"):
         KERNEL_CALLS[name]()
     assert build.LAUNCHES == before
+    assert list(build.WIDTHS) == widths
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_CALLS))
@@ -158,3 +159,15 @@ def test_cuh_constants_match_the_field_specs():
         assert (inv * spec.modulus) % (1 << 32) == (1 << 32) - 1
         if len(words) > 2:                                   # Montgomery one, R mod p
             assert value(words[2]) == (1 << 256) % spec.modulus
+
+
+def test_width_histogram_counts_launches_per_field_and_power_of_two():
+    """`build.width_histogram`: K1/K2 launches by kernel, field and the least
+    power of two >= the launch's element count."""
+    widths = [("mont_mul", "bn254_fr", 16384), ("mont_mul", "bn254_fr", 16377),
+              ("mont_mul", "bn254_fq", 1), ("bfly", "bn254_fr", 131072),
+              ("mont_mul", "bn254_fr", 3)]
+    assert build.width_histogram(widths) == {
+        "bfly/bn254_fr": {"2^17": 1},
+        "mont_mul/bn254_fq": {"2^0": 1},
+        "mont_mul/bn254_fr": {"2^2": 1, "2^14": 2}}

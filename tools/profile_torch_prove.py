@@ -21,6 +21,12 @@ them, then one JSON line:
   top             device operations by total time: name, count, total_ms
   launches        kernel launches of the timed create_proof (`build.LAUNCHES`)
   point_launches  the point kernels' share of them (K3-K9)
+  widths          K1 and K2 launches of the profiled create_proof per kernel,
+                  field and power-of-two width (`build.WIDTHS`), each with the
+                  device ms of those launches (the i-th launch of a kernel is
+                  the i-th device event of its name), their summed bound and
+                  the gap between the two (`<kernel>_unpaired`
+                  says so where the counts or fields do not pair)
 
 Needs one CUDA card and exits non-zero without one, or when the profiler
 records no device activity.
@@ -43,6 +49,41 @@ import numpy as np  # noqa: E402
 import chip_smoke  # noqa: E402
 
 TOP = 15
+
+
+def _bound_ms(kernel, n):
+    """`chip_smoke.bound` of one K1 launch of n products (three operands of
+    32 B each) or K2 launch over n elements (read and written once; the
+    twiddles, at most half as many, left out, so this is a floor)."""
+    if kernel == "mont_mul":
+        return chip_smoke.bound(96 * n, chip_smoke.IMAD_PER_MONT_MUL * n)[0]
+    return chip_smoke.bound(64 * n, chip_smoke.IMAD_PER_MONT_MUL * n // 2)[0]
+
+
+def _widths(ops, widths):
+    """{kernel/field: {2^k: {"launches", "device_ms", "bound_ms", "gap_ms"}}}
+    from the launch record `widths` and the device operations `ops` (start,
+    ns, name); gap = device time - bound, summed over the launches."""
+    from ezkl_tpu_torch.kernels import build
+    hist = build.width_histogram(widths)
+    out = {key: {w: {"launches": c, "device_ms": 0.0, "bound_ms": 0.0} for w, c in row.items()}
+           for key, row in hist.items()}
+    for kernel in ("mont_mul", "bfly"):
+        mine = [(f, n) for k, f, n in widths if k == kernel]
+        events = sorted((s, d, name) for s, d, name in ops if f"{kernel}_kernel" in name)
+        if len(mine) != len(events) or any(
+                f"{'Fr' if f.endswith('fr') else 'Fq'}>" not in name
+                for (f, _), (_, _, name) in zip(mine, events)):
+            out[f"{kernel}_unpaired"] = f"{len(mine)} launches, {len(events)} device events"
+            continue
+        for (field, n), (_, ns, _) in zip(mine, events):
+            cell = out[f"{kernel}/{field}"][f"2^{(n - 1).bit_length()}"]
+            cell["device_ms"] += ns / 1e6
+            cell["bound_ms"] += _bound_ms(kernel, n)
+    for row in out.values():
+        for cell in row.values() if isinstance(row, dict) else ():
+            cell["gap_ms"] = cell["device_ms"] - cell["bound_ms"]
+    return out
 
 
 def _breakdown(events, device_type, phase_names):
@@ -74,7 +115,7 @@ def _breakdown(events, device_type, phase_names):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
     busy = sum(d for _, d, _ in ops) / 1e9
     return busy, phases, [{"name": name[:120], "count": c, "total_ms": ns / 1e6}
-                          for name, (c, ns) in top]
+                          for name, (c, ns) in top], ops
 
 
 def main() -> int:
@@ -108,15 +149,18 @@ def main() -> int:
     wall = prove()
     launches = dict(build.LAUNCHES)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    build.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         profiled_wall = prove()
-    busy, phases, top = _breakdown(prof.profiler.kineto_results.events(), DeviceType.CUDA,
-                                   set(prover.PHASE_SECONDS))
+    widths = list(build.WIDTHS)
+    busy, phases, top, ops = _breakdown(prof.profiler.kineto_results.events(), DeviceType.CUDA,
+                                        set(prover.PHASE_SECONDS))
     chip_smoke.emit({"phase": "profile", "k": args.k, "wall_s": wall,
                      "profiled_wall_s": profiled_wall, "device_busy_s": busy,
                      "busy_share": busy / profiled_wall, "busy_share_of_wall": busy / wall,
                      "phases": phases, "top": top, "launches": launches,
                      "point_launches": sum(launches[k] for k in chip_smoke.POINT_KERNELS),
+                     "widths": _widths(ops, widths),
                      "device": torch.cuda.get_device_name(0)})
     return 0
 
