@@ -7,16 +7,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device  -- the card (nvidia-smi name and power limit), CUDA and nvcc versions
 2. build   -- nvcc builds `ezkl_tpu_torch/csrc/*.cu` for sm_90a
-3. kernels -- every kernel of the port (K1 Montgomery multiply, K2 NTT
+3. kernels -- every kernel of the port (K1 Montgomery multiply, elementwise
+              and in its chain forms mont_pow (a^(p-2) per element) and
+              mont_scan (prefix product of rows of steps), K2 NTT
               butterfly, K3 point add, K9 point doubling, and the fused
               MSM's K4 packed signed scan, K5 point prefix scan and K6
               bucket fold in both variants, K7 2^c doubling, K8 Horner
               combine) against its plain PyTorch version on the card,
-              bit-exact, on seeded inputs plus edge values (identities, the
-              pad pair and both signs for K4), at the main path's shapes
-              (K1 also with its broadcast operand forms; K4 also over a
-              ragged lane count and at every team size; K8 also at one
-              column, at one window of one doubling and on identities only);
+              bit-exact, on seeded inputs plus edge values (zeros for
+              mont_pow, identities, the pad pair and both signs for K4), at
+              the main path's shapes (K1 also with its broadcast operand
+              forms; mont_pow in both fields at widths 1, 8 and 2^14;
+              mont_scan also at 1, 16 and 3 rows; K4 and K5 also over a
+              ragged lane count and at every team size, K5 also at the
+              projective fused MSM's 3,328-26,624 lanes of 128 steps; K8
+              also at one column, at one window of one doubling and on
+              identities only);
               timed as device time per launch (`ms`: launches replayed
               from a CUDA graph, cycling over copies of the inputs that
               overflow the L2, so operands come from HBM as `bound_ms`
@@ -29,16 +35,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
               every usable row; verified by the port's host verifier, which
               must reject the proof with a tampered instance. Launch counts
               are reset just before gen_srs and create_proof and read just
-              after each: K1-K8 must be > 0 in create_proof (whose
-              commitments run the fused MSM), K9 in gen_srs.
+              after each: K1 (all three forms) to K8 must be > 0 in
+              create_proof (whose commitments run the fused MSM), K9 in
+              gen_srs.
 5. check   -- 2^14-point MSMs on the card against the host MSM: the fused
               pipeline on the SRS points (affine=True, as commitments run it,
               and affine=False) and the unfused one (K9 must be > 0 there);
               and an NTT round trip at 2^17
 
 Then a `times` line (seconds of phases 3-5), the `kernels` summary line
-(times, bounds, launches: K1-K8 from create_proof, K9 from gen_srs), the
-nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+(times, bounds, launches: K1's three forms and K2-K8 from create_proof, K9
+from gen_srs), the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -69,6 +76,10 @@ IMAD_PER_MONT_MUL = 2 * 128 + 8
 
 KERNEL_META = {
     "mont_mul": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/fieldmath/limbs.py:682"),
+    # K1's chain forms: the products of `pow_static` and of `prefix_scan_mul`'s
+    # block scans, which the TPU ran through the same kernel in a `lax.scan`
+    "mont_pow": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/fieldmath/limbs.py:682"),
+    "mont_scan": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/fieldmath/limbs.py:682"),
     "bfly": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/kernels/pntt.py:31"),
     "point_add": ("ezkl_tpu_torch/csrc/curve.cu", "ezkl_tpu/kernels/pcurve.py:199"),
     "point_dbl": ("ezkl_tpu_torch/csrc/curve.cu", "ezkl_tpu/kernels/pcurve.py:215"),
@@ -157,6 +168,25 @@ def bound(nbytes, imad):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def run_kernel(name, kern, plain, inputs, nbytes, imad, reps=GRAPH_REPS, **extra):
+    """One `kernel` line: `kern` against `plain` on `inputs` (bit-exact or
+    raise), device times, and the bound of `nbytes` moved and `imad`
+    multiply-adds. Returns the line's row."""
+    err = max_abs_err(_outputs(kern(*inputs)), _outputs(plain(*inputs)))
+    row = dict(max_abs_err=err, **extra, **timings(kern, inputs, plain, reps))
+    row["bound_ms"], row["bound_by"] = bound(nbytes, imad)
+    emit({"phase": "kernel", "kernel": name, **row})
+    if err:
+        raise AssertionError(f"{name} kernel != plain ({extra})")
+    return row
+
+
+def _outputs(out):
+    """A kernel's result as a list of tensors (a field array or a point)."""
+    import torch
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
 def max_abs_err(a, b) -> int:
     """Largest difference between the u32 limbs of two results (0 = bit-exact)."""
     import torch
@@ -236,6 +266,8 @@ def check_kernels(dev, rng):
                                          [a, c.expand(8, n).contiguous()]),
           "bound_ms": bound(2 * 32 * n, IMAD_PER_MONT_MUL * n)[0]})
 
+    rows.update(check_field_chains(dev, rng))
+
     # K2: every stage shape of a 2^17 NTT (extended domain); time the last
     n = 1 << 17
     x, _ = field_inputs(FR, n, rng, dev)
@@ -298,6 +330,50 @@ def check_kernels(dev, rng):
     return rows
 
 
+def check_field_chains(dev, rng):
+    """K1's chain forms against their plain versions, bit-exact: `mont_pow`
+    (a^(p-2), a Fermat inversion) in both fields at widths 1, 8 and 2^14,
+    zeros in the batch (and a single zero), and `mont_scan` at (rows, steps)
+    = (1, 32), (16, 32), (512, 32) -- the block scans of a 2^14 prefix
+    product -- and (3, 17). Returns the rows of the main path's commonest
+    shapes: an Fr inversion of one element, the 512 x 32 block scan."""
+    from ezkl_tpu_torch.fieldmath import limbs
+    from ezkl_tpu_torch.fieldmath.spec import bn254_fr, bn254_fq
+
+    FR, FQ = bn254_fr(), bn254_fq()
+    rows = {}
+
+    def elements(spec, n):
+        vals = [int.from_bytes(rng.bytes(32), "little") % spec.modulus for _ in range(n)]
+        if n > 1:
+            vals[0] = vals[n // 2] = 0
+        return limbs.to_device(limbs.encode(spec, vals), dev)
+
+    for spec in (FR, FQ):
+        e = spec.modulus - 2
+        products = limbs.pow_schedule(e)[3]
+        kern = lambda x: limbs._mont_pow_kernel(spec, x, e)          # noqa: E731
+        plain = lambda x: limbs.pow_static_plain(spec, x, e)         # noqa: E731
+        zero = limbs.zeros((1,), dev)
+        if max_abs_err([kern(zero)], [plain(zero)]):
+            raise AssertionError(f"mont_pow kernel != plain (inverse of zero, {spec.name})")
+        for n in (1, 8, 1 << 14):
+            row = run_kernel("mont_pow", kern, plain, [elements(spec, n)], 64 * n,
+                             products * IMAD_PER_MONT_MUL * n, reps=20, field=spec.name, n=n,
+                             exponent="p-2", products=products)
+            if spec is FR and n == 1:
+                rows["mont_pow"] = row
+    for r, steps in ((1, 32), (16, 32), (512, 32), (3, 17)):
+        v = elements(FR, r * steps).reshape(8, r, steps)
+        row = run_kernel("mont_scan", lambda x: limbs._mont_scan_kernel(FR, x),
+                         lambda x: limbs.seq_scan_mul_plain(FR, x), [v], 64 * r * steps,
+                         (steps - 1) * IMAD_PER_MONT_MUL * r, reps=20, field=FR.name, rows=r,
+                         steps=steps)
+        if r == 512:
+            rows["mont_scan"] = row
+    return rows
+
+
 # The fused MSM at k = 14 (n = 2^14, c = 10, so W = 26 signed windows, B = 512
 # buckets, S = 128 scan steps) over C committed columns: K4 scans C * 26 *
 # 2^14 / 128 = C * 3,328 lanes of 128 steps; the block-total prefix runs K5
@@ -331,8 +407,10 @@ def check_msm_kernels(dev, rng):
     """K4-K8 against their plain versions at the k = 14 main path's shapes,
     bit-exact, with edge lanes; one `kernel` line each (both variants of K5
     and K6; K4 at C = 1, 2, 4 and 8 and over a ragged 1,001 lanes, each
-    also at every team size; K8 also at one column, at W = 1 with c = 1 and with
-    every V_w the identity). Returns the rows at C = 8."""
+    also at every team size; K5 at every team size also at the projective
+    fused MSM's scan of C = 1, 2 and 8 columns; K8 also at one column, at
+    W = 1 with c = 1 and with every V_w the identity). Returns the rows at
+    C = 8."""
     import torch
     from ezkl_tpu_torch.fieldmath import curve, limbs
     from ezkl_tpu_torch.fieldmath.spec import bn254_fq
@@ -344,15 +422,6 @@ def check_msm_kernels(dev, rng):
     one = limbs.const(FQ, 1, device=dev)
     ident = (zero, one, zero)
     rows = {}
-
-    def run(name, kern, plain, inputs, nbytes, imad, reps=GRAPH_REPS, **extra):
-        err = max_abs_err(kern(*inputs), plain(*inputs))
-        row = dict(max_abs_err=err, **extra, **timings(kern, inputs, plain, reps))
-        row["bound_ms"], row["bound_by"] = bound(nbytes, imad)
-        emit({"phase": "kernel", "kernel": name, **row})
-        if err:
-            raise AssertionError(f"{name} kernel != plain ({extra})")
-        return row
 
     def rand_idx(*shape):
         return torch_index(rng.integers(0, P.x.shape[1], size=shape), dev)
@@ -391,10 +460,10 @@ def check_msm_kernels(dev, rng):
         # with the team `scan_packed_team` picks, then at every team size
         L = C * MSM_W * MSM_N // MSM_S
         inputs, adds = scan_inputs(L)
-        row = run("scan_packed", pcurve._scan_packed_kernel, pcurve.scan_packed_plain,
-                  inputs, (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * adds,
-                  reps=20 if C == 1 else 5, columns=C, lanes=L, steps=MSM_S,
-                  team=pcurve.scan_packed_team(L))
+        row = run_kernel("scan_packed", pcurve._scan_packed_kernel, pcurve.scan_packed_plain,
+                         inputs, (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * adds,
+                         reps=20 if C == 1 else 5, columns=C, lanes=L, steps=MSM_S,
+                         team=pcurve.scan_packed_team(L))
         scan_teams(inputs, L, columns=C, adds=adds)
         del inputs
     rows["scan_packed"] = row
@@ -402,31 +471,70 @@ def check_msm_kernels(dev, rng):
     # block (the ragged last block)
     L = 1001
     inputs, adds = scan_inputs(L)
-    run("scan_packed", pcurve._scan_packed_kernel, pcurve.scan_packed_plain, inputs,
-        (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * adds, reps=20, lanes=L, steps=MSM_S,
-        team=pcurve.scan_packed_team(L))
+    run_kernel("scan_packed", pcurve._scan_packed_kernel, pcurve.scan_packed_plain, inputs,
+               (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * adds, reps=20, lanes=L, steps=MSM_S,
+               team=pcurve.scan_packed_team(L))
     scan_teams(inputs, L, adds=adds)
     del inputs
 
     C = 8
     G = C * MSM_W
 
-    # K5 at the block-total prefix's first level: C * 104 lanes x 32 steps
-    L, S = G * 4, 32
-    idx = rand_idx(S, L)
-    mask = torch.zeros(S, L, dtype=torch.bool, device=dev)
-    mask[0, 0] = mask[3, 1] = True
-    mask[:, 2] = True
-    Pq = _set(_gather(P, idx), mask, ident)
-    Pa = _gather((ax, ay), idx)
-    for variant, inputs, nin, muls in (("complete", list(Pq), 3, 12), ("mixed", list(Pa), 2, 11)):
-        row = run("scan_steps", lambda *t: pcurve._scan_steps_kernel(
-                      curve.PointP(*t) if len(t) == 3 else t),
-                  lambda *t: pcurve.scan_steps_plain(curve.PointP(*t) if len(t) == 3 else t),
-                  inputs, (nin + 3) * 32 * S * L, muls * mm * (S - 1) * L,
-                  variant=variant, columns=C, lanes=L, steps=S)
-        if variant == "complete":
-            rows["scan_steps"] = row
+    point = lambda t: curve.PointP(*t) if len(t) == 3 else t            # noqa: E731
+
+    def steps_teams(variant, inputs, L, S, nbytes, imad, **extra):
+        """K5 at every team size on one input: bit-exact, device times."""
+        want = pcurve.scan_steps_plain(point(inputs))
+        reps = 20 if L * S <= 1 << 16 else 5
+        for team in pcurve.SCAN_TEAMS:
+            kern = lambda *t: pcurve._scan_steps_launch(point(t), team)  # noqa: E731
+            err = max_abs_err(kern(*inputs), want)
+            row = dict(max_abs_err=err, variant=variant, team=team, lanes=L, steps=S, **extra,
+                       ms=device_ms(kern, inputs, reps=reps),
+                       l2_ms=device_ms(kern, inputs, cold=False, reps=reps))
+            row["bound_ms"], row["bound_by"] = bound(nbytes, imad)
+            emit({"phase": "kernel", "kernel": "scan_steps", "team_sweep": True, **row})
+            if err:
+                raise AssertionError(f"scan_steps kernel != plain (team {team}, {variant}, "
+                                     f"{L} lanes)")
+
+    def steps_inputs(L, S):
+        """K5's inputs over L lanes of S steps: projective with identities at
+        a first step, a later step, over a whole lane and in the last lane;
+        and the affine pairs of the same points."""
+        idx = rand_idx(S, L)
+        mask = torch.zeros(S, L, dtype=torch.bool, device=dev)
+        mask[0, 0] = mask[3, 1] = mask[5, L - 1] = True
+        mask[:, 2] = True
+        return list(_set(_gather(P, idx), mask, ident)), list(_gather((ax, ay), idx))
+
+    # K5 at the block-total prefix's first level: C * 104 lanes x 32 steps,
+    # with the team `scan_steps_team` picks, then at every team size; and
+    # over a lane count that fills no block of either team size
+    S = 32
+    for L in (G * 4, 1001):
+        Pq, Pa = steps_inputs(L, S)
+        for variant, inputs, nin, muls in (("complete", Pq, 3, 12), ("mixed", Pa, 2, 11)):
+            nbytes, imad = (nin + 3) * 32 * S * L, muls * mm * (S - 1) * L
+            row = run_kernel("scan_steps", lambda *t: pcurve._scan_steps_kernel(point(t)),
+                             lambda *t: pcurve.scan_steps_plain(point(t)), inputs, nbytes,
+                             imad, variant=variant, **({"columns": C} if L == G * 4 else {}),
+                             lanes=L, steps=S, team=pcurve.scan_steps_team(L))
+            if variant == "complete" and L == G * 4:
+                rows["scan_steps"] = row
+            steps_teams(variant, inputs, L, S, nbytes, imad)
+        del Pq, Pa
+
+    # K5 at the projective fused MSM's own scan (`msm.msm(..., affine=False)`,
+    # as the check phase runs it): 3,328 lanes of 128 steps per column, at
+    # 1, 2 and 8 columns, every team size; the lane counts where the team
+    # that wins may change
+    for Cp in (1, 2, 8):
+        L = Cp * MSM_W * MSM_N // MSM_S
+        Pq, _ = steps_inputs(L, MSM_S)
+        steps_teams("complete", Pq, L, MSM_S, 6 * 32 * MSM_S * L, 12 * mm * (MSM_S - 1) * L,
+                    columns=Cp)
+        del Pq
 
     # K6 over the B = 512 bucket sums of every window: G groups, 4 chunks of 128
     chunks, blk = 4, 128
@@ -436,30 +544,32 @@ def check_msm_kernels(dev, rng):
     Pq = _set(_gather(P, idx), mask, ident)
     Pa = _gather((ax, ay), idx)
     for variant, inputs, nin, muls in (("complete", list(Pq), 3, 12), ("mixed", list(Pa), 2, 11)):
-        row = run("fold_lanes", lambda *t: pcurve._fold_lanes_kernel(
-                      curve.PointP(*t) if len(t) == 3 else t, blk),
-                  lambda *t: pcurve.fold_lanes_plain(curve.PointP(*t) if len(t) == 3 else t, blk),
-                  inputs, nin * 32 * G * chunks * blk + 96 * G * blk,
-                  muls * mm * (chunks - 1) * G * blk,
-                  variant=variant, columns=C, groups=G, chunks=chunks, blk=blk)
+        row = run_kernel("fold_lanes", lambda *t: pcurve._fold_lanes_kernel(
+                             curve.PointP(*t) if len(t) == 3 else t, blk),
+                         lambda *t: pcurve.fold_lanes_plain(
+                             curve.PointP(*t) if len(t) == 3 else t, blk),
+                         inputs, nin * 32 * G * chunks * blk + 96 * G * blk,
+                         muls * mm * (chunks - 1) * G * blk,
+                         variant=variant, columns=C, groups=G, chunks=chunks, blk=blk)
         if variant == "complete":
             rows["fold_lanes"] = row
 
     # K7: 2^(c-1) * T_w over the C * 26 window totals, c = 10
     lane0 = torch.arange(G, device=dev) == 0
     T = _set(_gather(P, rand_idx(G)), lane0, ident)
-    rows["dbl_pow2"] = run("dbl_pow2", lambda *t: pcurve._dbl_pow2_kernel(curve.PointP(*t), 9),
-                           lambda *t: pcurve.dbl_pow2_plain(curve.PointP(*t), 9),
-                           list(T), 6 * 32 * G, 9 * 8 * mm * G, lanes=G, c=9)
+    rows["dbl_pow2"] = run_kernel("dbl_pow2",
+                                  lambda *t: pcurve._dbl_pow2_kernel(curve.PointP(*t), 9),
+                                  lambda *t: pcurve.dbl_pow2_plain(curve.PointP(*t), 9),
+                                  list(T), 6 * 32 * G, 9 * 8 * mm * G, lanes=G, c=9)
 
     # K8: W = 26 windows at c = 10 over C columns; then one column, one
     # window of one doubling, and every V_w the identity
     def horner(W, c, width, mask, **extra):
         V = _set(_gather(P, rand_idx(W, width)), mask, ident)
-        return run("horner", lambda *t: pcurve._horner_kernel(curve.PointP(*t), c),
-                   lambda *t: pcurve.horner_plain(curve.PointP(*t), c),
-                   list(V), 3 * 32 * (W + 1) * width, W * (c * 8 + 12) * mm * width,
-                   windows=W, c=c, width=width, **extra)
+        return run_kernel("horner", lambda *t: pcurve._horner_kernel(curve.PointP(*t), c),
+                          lambda *t: pcurve.horner_plain(curve.PointP(*t), c),
+                          list(V), 3 * 32 * (W + 1) * width, W * (c * 8 + 12) * mm * width,
+                          windows=W, c=c, width=width, **extra)
 
     mask = torch.zeros(MSM_W, C, dtype=torch.bool, device=dev)
     mask[0, 0] = mask[3, 2] = True
@@ -649,8 +759,8 @@ def main() -> int:
     emit({"phase": "times", "kernels_s": t_kernels, "prove_phase_s": t_prove,
           "check_s": time.perf_counter() - t0})
 
-    # launches: K1-K8 from create_proof; K9 from gen_srs, its path since the
-    # fused MSM (K7, K8) took over the MSM's doublings
+    # launches: K1 (each form) to K8 from create_proof; K9 from gen_srs, its
+    # path since the fused MSM (K7, K8) took over the MSM's doublings
     paths = {name: ("create_proof", launches[name]) for name in launches}
     paths["point_dbl"] = ("gen_srs", srs_launches["point_dbl"])
     emit({"kernels": [
@@ -664,8 +774,9 @@ def main() -> int:
          "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
          "library_ms": None,
          "shape": {k: v for k, v in rows[name].items()
-                   if k in ("n", "lanes", "steps", "groups", "chunks", "blk", "c",
-                            "windows", "width", "columns", "team")}}
+                   if k in ("field", "n", "rows", "lanes", "steps", "groups", "chunks", "blk",
+                            "c", "windows", "width", "columns", "team", "variant",
+                            "exponent")}}
         for name, (src, rep) in KERNEL_META.items()],
         "create_proof_point_dbl_launches": launches["point_dbl"],
         "unfused_msm_point_dbl_launches": unfused_launches["point_dbl"]})

@@ -38,15 +38,16 @@
 // few threads to fill the card, so each is bound by the latency of its
 // dependent chain (K8 at k = 14: 26 windows x (10 doublings + 1 add)).
 // Design: the whole step loop inside the kernel, so the carried point never
-// leaves registers. K5-K7 run one thread per lane in narrow blocks, so that
-// the lanes of a k = 14 scan spread over all SMs. K4 and K8 run a team of
-// threads per lane or column (bn254.cuh, "teams"): the products of each
-// level of a formula side by side, so a chain's critical path is 2-6
-// products per point operation instead of 8-12. A team repeats the adds
-// between the levels in each of its threads, so K4 takes a smaller team
-// where many lanes already fill the card (`pcurve.scan_packed_team`); K8's
-// few columns take teams of 8, one per block. Step-major layouts (8, S, m)
-// -- element (limb i, step s, lane l) at (i * S + s) * m + l -- make the
+// leaves registers. K6 and K7 run one thread per lane in narrow blocks, so
+// that the lanes spread over all SMs. K4, K5 and K8 run a team of threads per
+// lane or column (bn254.cuh, "teams"): the products of each level of a
+// formula side by side, so a chain's critical path is 2-6 products per point
+// operation instead of 8-12. A team repeats the adds between the levels in
+// each of its threads, so K4 and K5 take a smaller team where many lanes
+// already fill the card (`pcurve.scan_packed_team`, `pcurve.scan_steps_team`;
+// K5's 832 lanes of 32 steps at k = 14 are 13 warps with one thread per
+// lane); K8's few columns take teams of 8, one per block. Step-major layouts
+// (8, S, m) -- element (limb i, step s, lane l) at (i * S + s) * m + l -- make the
 // lanes of one step contiguous, so the loads and stores of a warp coalesce;
 // the MSM's gather writes that layout directly.
 
@@ -59,9 +60,10 @@ using namespace bn254;
 namespace {
 
 constexpr int kScanThreads = 64;
-// Threads per block of K4 with teams of T: blocks of 4 lanes for teams of 8,
-// so that a few thousand lanes still spread evenly over the 132 SMs, and of
-// 64 lanes for teams of 2 (measured, PERF.md).
+// Threads per block of K4 and K5 with teams of T: blocks of 4 lanes for
+// teams of 8, so that a few thousand lanes still spread evenly over the 132
+// SMs, and of 64 lanes for teams of 2 (block sizes measured for K4, PERF.md;
+// K5 takes the same).
 template <int T>
 __host__ __device__ constexpr int team_block() {
   return T == 8 ? 32 : 128;
@@ -123,34 +125,6 @@ __device__ __forceinline__ bool is_pad_pair(const Fe& x, const Fe& y) {
   return pad;
 }
 
-// K5: inputs and outputs step-major (8, S, m). Step 0 loads the first point
-// (z = 1 for affine inputs); each later step adds the next; every step's
-// prefix is stored.
-template <bool Mixed>
-__global__ void __launch_bounds__(kScanThreads)
-    scan_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-                const uint32_t* __restrict__ z, uint32_t* __restrict__ ox,
-                uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, long long m, int steps) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= m) return;
-  const long long stride = m * steps;
-  Fe X, Y, Z;
-  for (int s = 0; s < steps; ++s) {
-    const long long j = (long long)s * m + l;
-    const Fe X2 = load(x, stride, j);
-    const Fe Y2 = load(y, stride, j);
-    const Fe Z2 = Mixed ? fq_one() : load(z, stride, j);
-    if (s == 0) {
-      X = X2;
-      Y = Y2;
-      Z = Z2;
-    } else {
-      accumulate<Mixed>(X, Y, Z, X2, Y2, Z2);
-    }
-    store_point(ox, oy, oz, stride, j, X, Y, Z);
-  }
-}
-
 template <int T>
 __device__ __forceinline__ void team_store_point(const Team<T>& tm, uint32_t* __restrict__ ox,
                                                  uint32_t* __restrict__ oy,
@@ -160,6 +134,47 @@ __device__ __forceinline__ void team_store_point(const Team<T>& tm, uint32_t* __
   team_store(tm, ox, stride, j, reduce_cc<Fq>(X));
   team_store(tm, oy, stride, j, reduce_cc<Fq>(Y));
   team_store(tm, oz, stride, j, reduce_cc<Fq>(Z));
+}
+
+// K5: inputs and outputs step-major (8, S, m); a team of T threads per lane,
+// team_block<T>() / T lanes per block, as K4. Step 0 loads the first point
+// (z = 1 for affine inputs); each later step adds the next with the team, by
+// complete adds (alg. 7, identities allowed) or mixed adds (alg. 8, affine
+// inputs, no identities); every step's canonical prefix is stored, each
+// thread its limbs.
+template <bool Mixed, int T>
+__global__ void __launch_bounds__(team_block<T>())
+    scan_steps_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                      const uint32_t* __restrict__ z, uint32_t* __restrict__ ox,
+                      uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, long long m,
+                      int steps) {
+  constexpr int kTeams = team_block<T>() / T;
+  __shared__ TeamSlots<T, kTeams> slots;
+  const long long l = (long long)blockIdx.x * kTeams + threadIdx.x / T;
+  if (l >= m) return;  // the whole team: l is the same in its threads
+  const Team<T> tm = make_team(slots);
+  const long long stride = m * steps;
+  Fe X, Y, Z;
+  for (int s = 0; s < steps; ++s) {
+    const long long j = (long long)s * m + l;
+    const Fe X2 = load(x, stride, j);
+    const Fe Y2 = load(y, stride, j);
+    if (s == 0) {
+      X = X2;
+      Y = Y2;
+      Z = Mixed ? fq_one() : load(z, stride, j);
+    } else {
+      Fe X3, Y3, Z3;
+      if (Mixed)
+        team_mixed_add<Fq>(tm, X, Y, Z, X2, Y2, X3, Y3, Z3);
+      else
+        team_complete_add<Fq>(tm, X, Y, Z, X2, Y2, load(z, stride, j), X3, Y3, Z3);
+      X = X3;
+      Y = Y3;
+      Z = Z3;
+    }
+    team_store_point(tm, ox, oy, oz, stride, j, X, Y, Z);
+  }
 }
 
 // K4: px, py, sn and the outputs step-major (8, S, m); a team of T threads
@@ -291,6 +306,13 @@ inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+template <bool Mixed, int T>
+void launch_scan_steps(const uint32_t* x, const uint32_t* y, const uint32_t* z, uint32_t* ox,
+                       uint32_t* oy, uint32_t* oz, long long m, int steps, cudaStream_t s) {
+  scan_steps_kernel<Mixed, T><<<blocks_for(m, team_block<T>() / T), team_block<T>(), 0, s>>>(
+      x, y, z, ox, oy, oz, m, steps);
+}
+
 template <int T>
 void launch_scan_packed(const uint32_t* px, const uint32_t* py, const int32_t* sn, uint32_t* ox,
                         uint32_t* oy, uint32_t* oz, long long m, int steps, cudaStream_t s) {
@@ -316,16 +338,21 @@ extern "C" int ez_scan_packed(const uint32_t* px, const uint32_t* py, const int3
   return (int)cudaGetLastError();
 }
 
-// mixed: 0 = projective inputs (x, y, z) by complete adds, 1 = affine (x, y)
+// mixed: 0 = projective inputs (x, y, z) by complete adds, 1 = affine (x, y);
+// team: threads per lane, 2 or 8 (`pcurve.scan_steps_team` chooses)
 extern "C" int ez_scan_steps(int mixed, const uint32_t* x, const uint32_t* y, const uint32_t* z,
                              uint32_t* ox, uint32_t* oy, uint32_t* oz, long long m, int steps,
-                             void* stream) {
+                             int team, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned b = blocks_for(m, kScanThreads);
-  if (mixed)
-    scan_kernel<true><<<b, kScanThreads, 0, s>>>(x, y, nullptr, ox, oy, oz, m, steps);
+  if (team != 2 && team != 8) return (int)cudaErrorInvalidValue;
+  if (mixed && team == 2)
+    launch_scan_steps<true, 2>(x, y, nullptr, ox, oy, oz, m, steps, s);
+  else if (mixed)
+    launch_scan_steps<true, 8>(x, y, nullptr, ox, oy, oz, m, steps, s);
+  else if (team == 2)
+    launch_scan_steps<false, 2>(x, y, z, ox, oy, oz, m, steps, s);
   else
-    scan_kernel<false><<<b, kScanThreads, 0, s>>>(x, y, z, ox, oy, oz, m, steps);
+    launch_scan_steps<false, 8>(x, y, z, ox, oy, oz, m, steps, s);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,13 @@ torch's uint32 lacks add, shift and compare on the CPU.
 
 Dispatch. `mont_mul` is kernel K1: a CUDA tensor always goes through the
 hand-written kernel (`csrc/field.cu`, built by `kernels/build.py`), a CPU
-tensor through `mont_mul_plain`. Field add, sub, neg and select were XLA ops
-in the JAX package, not TPU kernels; here they are plain torch ops on
-either device.
+tensor through `mont_mul_plain`. K1's chain forms do the same for the two
+chains of products the prover runs: `pow_static` (and so `inv`) through
+`ez_mont_pow` or `pow_static_plain`, the sequential block scan of
+`prefix_scan_mul` through `ez_mont_scan` or `seq_scan_mul_plain`; on the
+card each chain is one launch, not one per product. Field add, sub, neg and
+select were XLA ops in the JAX package, not TPU kernels; here they are plain
+torch ops on either device.
 
 Plain versions compute on int64 tensors: 32-bit limbs ("words") for add and
 sub, 16-bit limbs for the product, where every partial product and column sum
@@ -23,6 +27,7 @@ with one `cummax` -- a few large ops instead of a loop over limbs.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -340,7 +345,7 @@ def _mont_mul_kernel(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch
         build.check(lib.ez_mont_mul(_FIELD_ID[spec.name], a2.data_ptr(), b2.data_ptr(),
                                     out.data_ptr(), n, *form, build.stream_of(a2)), "mont_mul")
         build.LAUNCHES["mont_mul"] += 1
-        build.WIDTHS.append(("mont_mul", spec.name, n))
+        build.WIDTHS.append(("mont_mul", spec.name, n, n))
     return out.reshape(shape)
 
 
@@ -381,10 +386,6 @@ def select(mask, a, b):
     return torch.where(mask[None], a, b)
 
 
-def mont_sqr(spec: FieldSpec, a):
-    return mont_mul(spec, a, a)
-
-
 def to_mont(spec: FieldSpec, a):
     return mont_mul(spec, a, bcast_const(spec, spec.r2, a.dim() - 1, mont=False,
                                          device=a.device))
@@ -395,22 +396,127 @@ def from_mont(spec: FieldSpec, a):
                                          device=a.device))
 
 
-def pow_static(spec: FieldSpec, a, e: int):
-    """a^e for a static exponent (Montgomery form), MSB-first
-    square-and-multiply; the multiply is skipped at zero bits."""
+# ---------------------------------------------------------------------------
+# K1's chain forms: a static power and a sequential prefix product
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def pow_static_plain(spec: FieldSpec, a, e: int):
+    """Plain PyTorch version of the `mont_pow` form (either device): a^e,
+    MSB-first square-and-multiply, the multiply skipped at zero bits."""
     if e == 0:
         return ones_mont(spec, a.shape[1:], a.device).clone()
-    acc = a
+    x = _w(a)
+    acc = x
     for bit in bin(e)[3:]:
-        acc = mont_sqr(spec, acc)
+        acc = mont_mul_w(spec, acc, acc)
         if bit == "1":
-            acc = mont_mul(spec, acc, a)
-    return acc
+            acc = mont_mul_w(spec, acc, x)
+    return _i32(acc)
+
+
+# bits of `ez_mont_pow`'s sliding window; its table holds the odd powers
+# x, x^3, .., x^(2^POW_WINDOW - 1)
+POW_WINDOW = 4
+
+
+@functools.lru_cache(maxsize=None)
+def pow_schedule(e: int):
+    """The sliding-window schedule of `ez_mont_pow` for a static e >= 1, left
+    to right: a window starts at a one bit and takes up to POW_WINDOW bits,
+    ending at a one. Returns (first, windows, trailing, products): the table
+    index (digit - 1) / 2 of the leading window; per later window the
+    squarings before its product (the zeros since the last window and its
+    own bits) and its table index; the squarings after the last window; and
+    the count of Montgomery products, the table's 2^(POW_WINDOW - 1) among
+    them."""
+    bits = bin(e)[2:]
+    first, windows, zeros, i = None, [], 0, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            zeros, i = zeros + 1, i + 1
+            continue
+        j = min(i + POW_WINDOW, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        digit = (int(bits[i:j], 2) - 1) // 2
+        if first is None:
+            first = digit
+        else:
+            windows.append((zeros + j - i, digit))
+        zeros, i = 0, j
+    products = (1 << (POW_WINDOW - 1)) + sum(sq for sq, _ in windows) + len(windows) + zeros
+    return first, tuple(windows), zeros, products
+
+
+def _mont_pow_kernel(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e on the card in one launch; 1 <= e < 2^256."""
+    if not 1 <= e < 1 << 256:
+        raise ValueError(f"mont_pow: exponent out of range [1, 2^256): {e}")
+    lib = build.lib()
+    a2 = a.reshape(NWORDS, -1).contiguous()
+    build.require_card("mont_pow", a2)
+    out = torch.empty_like(a2)
+    n = a2.shape[1]
+    if n:
+        first, windows, trailing, products = pow_schedule(e)
+        sq = (ctypes.c_uint8 * max(len(windows), 1))(*(w[0] for w in windows))
+        dig = (ctypes.c_uint8 * max(len(windows), 1))(*(w[1] for w in windows))
+        build.check(lib.ez_mont_pow(_FIELD_ID[spec.name], a2.data_ptr(), out.data_ptr(), n,
+                                    ctypes.addressof(sq), ctypes.addressof(dig), len(windows),
+                                    first, trailing, build.stream_of(a2)), "mont_pow")
+        build.LAUNCHES["mont_pow"] += 1
+        build.WIDTHS.append(("mont_pow", spec.name, n, n * products))
+    return out.reshape(a.shape)
+
+
+def pow_static(spec: FieldSpec, a, e: int):
+    """a^e for a static exponent (Montgomery form), the `mont_pow` form of
+    K1 on the card, `pow_static_plain` on the CPU."""
+    if e and a.is_cuda:
+        return _mont_pow_kernel(spec, a, e)
+    return pow_static_plain(spec, a, e)
 
 
 def inv(spec: FieldSpec, a):
     """Batched inverse via Fermat: a^(p-2). inv(0) == 0."""
     return pow_static(spec, a, spec.modulus - 2)
+
+
+@torch.inference_mode()
+def seq_scan_mul_plain(spec: FieldSpec, v):
+    """Plain PyTorch version of the `mont_scan` form (either device): the
+    inclusive prefix product along the last axis, one product per step."""
+    w = _w(v)
+    acc, outs = w[..., 0], [w[..., 0]]
+    for i in range(1, v.shape[-1]):
+        acc = mont_mul_w(spec, acc, w[..., i])
+        outs.append(acc)
+    return _i32(torch.stack(outs, dim=-1))
+
+
+def _mont_scan_kernel(spec: FieldSpec, v: torch.Tensor) -> torch.Tensor:
+    """The prefix product along the last axis on the card, one launch."""
+    lib = build.lib()
+    steps = v.shape[-1]
+    v2 = v.reshape(NWORDS, -1, steps).contiguous()
+    build.require_card("mont_scan", v2, ndim=3)
+    out = torch.empty_like(v2)
+    rows = v2.shape[1]
+    if out.numel():
+        build.check(lib.ez_mont_scan(_FIELD_ID[spec.name], v2.data_ptr(), out.data_ptr(), rows,
+                                     steps, build.stream_of(v2)), "mont_scan")
+        build.LAUNCHES["mont_scan"] += 1
+        build.WIDTHS.append(("mont_scan", spec.name, rows * steps, rows * (steps - 1)))
+    return out.reshape(v.shape)
+
+
+def seq_scan_mul(spec: FieldSpec, v):
+    """Inclusive prefix product along the last axis, one step per element:
+    the `mont_scan` form of K1 on the card, `seq_scan_mul_plain` on the CPU."""
+    if v.is_cuda:
+        return _mont_scan_kernel(spec, v)
+    return seq_scan_mul_plain(spec, v)
 
 
 _SCAN_BLOCK = 32
@@ -425,37 +531,40 @@ def _seq_scan(op, init, v):
     return torch.stack(outs, dim=-1)
 
 
-def _blocked_scan(op, identity_of, v):
+def _blocked_scan(op, seq, identity_of, v):
     """Blocked inclusive scan along the last axis (as limbs.py:829-883):
-    (m, BLOCK) local scans of BLOCK full-width steps, a recursive scan of the
-    m block totals, one combine."""
+    (m, BLOCK) local scans `seq` of BLOCK full-width steps, a recursive scan
+    of the m block totals, one combine by `op`."""
     n = v.shape[-1]
     if n <= _SCAN_BLOCK:
-        return _seq_scan(op, identity_of(v.shape[1:-1]), v)
+        return seq(v)
     m = -(-n // _SCAN_BLOCK)
     if m * _SCAN_BLOCK != n:
         pad = identity_of(v.shape[1:-1] + (m * _SCAN_BLOCK - n,))
         v = torch.cat([v, pad], dim=-1)
     vr = v.reshape(v.shape[:-1] + (m, _SCAN_BLOCK))
-    local = _blocked_scan(op, identity_of, vr)
-    tot_pref = _blocked_scan(op, identity_of, local[..., -1])
+    local = _blocked_scan(op, seq, identity_of, vr)
+    tot_pref = _blocked_scan(op, seq, identity_of, local[..., -1])
     offs = torch.cat([identity_of(tot_pref.shape[1:-1] + (1,)), tot_pref[..., :-1]], dim=-1)
     combined = op(local, offs[..., None].expand(local.shape))
     return combined.reshape(v.shape[:-1] + (-1,))[..., :n]
 
 
 def prefix_scan_mul(spec: FieldSpec, v, reverse: bool = False):
-    """Inclusive prefix (or suffix) product along the last axis."""
+    """Inclusive prefix (or suffix) product along the last axis; each block
+    of 32 steps is one `seq_scan_mul`."""
     if reverse:
         return prefix_scan_mul(spec, v.flip(-1)).flip(-1)
-    return _blocked_scan(lambda x, y: mont_mul(spec, x, y),
+    return _blocked_scan(lambda x, y: mont_mul(spec, x, y), lambda x: seq_scan_mul(spec, x),
                          lambda shp: ones_mont(spec, shp, v.device), v)
 
 
 def prefix_scan_add(spec: FieldSpec, v):
     """Inclusive prefix sum along the last axis."""
-    return _blocked_scan(lambda x, y: add(spec, x, y),
-                         lambda shp: zeros(shp, v.device), v)
+    op = lambda x, y: add(spec, x, y)                      # noqa: E731
+    identity_of = lambda shp: zeros(shp, v.device)         # noqa: E731
+    return _blocked_scan(op, lambda x: _seq_scan(op, identity_of(x.shape[1:-1]), x),
+                         identity_of, v)
 
 
 def batch_inv(spec: FieldSpec, a):

@@ -236,12 +236,13 @@ def scan_packed_plain(px, py, sn) -> PointP:
     return _chain_plain((limbs._w(px), limbs._w(y)), 0, mixed=True, every=True, skip=pad)
 
 
-# K4 runs a team of 8 or 2 threads per lane (`csrc/msm.cu`). The larger team
-# shortens a lane's chain but repeats the adds between the products in every
-# thread: it pays where few lanes leave the card idle, the smaller one where
-# many lanes fill it. The limit is from the H100 sweep at 1,001 and 3,328 to
-# 26,624 lanes in `chip_smoke.py` (PERF.md, K4's row); teams of 4 were never
-# the fastest there.
+# K4 and K5 run a team of 8 or 2 threads per lane (`csrc/msm.cu`). The larger
+# team shortens a lane's chain but repeats the adds between the products in
+# every thread: it pays where few lanes leave the card idle, the smaller one
+# where many lanes fill it. The limit is from the H100 sweeps of both kernels
+# at 832-1,001 and 3,328 to 26,624 lanes in `chip_smoke.py`: each crosses
+# between 3,328 and 6,656 lanes (PERF.md, K4's and K5's rows); teams of 4
+# were never the fastest for K4.
 SCAN_TEAMS = (2, 8)
 SCAN_TEAM8_LANES = 4096
 
@@ -294,11 +295,20 @@ def scan_steps_plain(p) -> PointP:
     return _chain_plain(tuple(limbs._w(c) for c in coords), 0, mixed, every=True)
 
 
-def _scan_steps_kernel(p) -> PointP:
+def scan_steps_team(m: int) -> int:
+    """Threads per lane of K5 for m lanes."""
+    return 8 if m <= SCAN_TEAM8_LANES else 2
+
+
+def _scan_steps_launch(p, team: int) -> PointP:
     coords, mixed = _coords(p)
     S, m = coords[0].shape[1:]
     return _kernel("scan_steps", "ez_scan_steps", coords, (S, m), pre=(int(mixed),),
-                   post=(m, S))
+                   post=(m, S, team))
+
+
+def _scan_steps_kernel(p) -> PointP:
+    return _scan_steps_launch(p, scan_steps_team(_coords(p)[0][0].shape[2]))
 
 
 def scan_steps(p) -> PointP:

@@ -45,7 +45,7 @@ def _bfly_kernel(spec: FieldSpec, x: torch.Tensor, w: torch.Tensor) -> torch.Ten
                                 out.data_ptr(), n, half.bit_length() - 1,
                                 build.stream_of(x2)), "bfly")
         build.LAUNCHES["bfly"] += 1
-        build.WIDTHS.append(("bfly", spec.name, n))
+        build.WIDTHS.append(("bfly", spec.name, n, n // 2))
     return out.reshape(x.shape)
 
 

@@ -127,3 +127,51 @@ def test_k1_broadcast_operand_index(a_shape, b_shape, representable):
         want = b.expand(shape).reshape(8, -1)
         assert torch.equal(b.reshape(8, period)[:, (j // rep) % period], want)
         assert limbs._unexpand(b.expand(shape)).shape == b_shape
+
+
+@pytest.mark.parametrize("field", sorted(SPECS))
+@pytest.mark.parametrize("e", ["0", "1", "2", "p-2"])
+def test_pow_static_plain_bit_exact_vs_reference(field, e):
+    """K1's `mont_pow` form as its plain version runs it, zeros in the batch."""
+    spec, rspec = SPECS[field]
+    exp = spec.modulus - 2 if e == "p-2" else int(e)
+    (a_ref, _), (a, _) = _pair(field, seed=11)          # element 0 is zero
+    _same(limbs.pow_static_plain(spec, a, exp), ref.pow_static(rspec, jnp.asarray(a_ref), exp))
+    _same(limbs.pow_static(spec, a, exp), ref.pow_static(rspec, jnp.asarray(a_ref), exp))
+
+
+@pytest.mark.parametrize("field", sorted(SPECS))
+def test_pow_schedule_rebuilds_the_exponent(field):
+    """`ez_mont_pow`'s sliding-window schedule: the windows, shifted in,
+    give back the exponent; at most 64 windows and 8 table entries."""
+    spec, _ = SPECS[field]
+    rng = np.random.default_rng(5)
+    exps = [1, 2, 3, 16, 17, 0x10001, spec.modulus - 2, (1 << 255) + 1, (1 << 256) - 1,
+            int("10" * 128, 2), int("1000" * 64, 2)] + [
+        int.from_bytes(rng.bytes(32), "little") | 1 for _ in range(20)]
+    for e in exps:
+        first, windows, trailing, products = limbs.pow_schedule(e)
+        v = 2 * first + 1
+        for sq, dig in windows:
+            assert 0 <= dig < 8 and sq >= 1
+            v = (v << sq) + 2 * dig + 1
+        assert v << trailing == e
+        assert len(windows) <= 64
+        assert products == 8 + sum(sq for sq, _ in windows) + len(windows) + trailing
+    assert limbs.pow_schedule(spec.modulus - 2)[3] < spec.modulus.bit_length() + 64
+
+
+@pytest.mark.parametrize("steps", [1, 31, 32, 33, 1025])
+def test_prefix_scan_mul_over_rows_bit_exact_vs_reference(steps):
+    """`prefix_scan_mul` (its blocks through `seq_scan_mul_plain` on the CPU)
+    over three rows, at block-edge lengths and two levels of recursion (Fr;
+    the Fq scan is in `test_field_op_bit_exact_vs_reference`)."""
+    spec, rspec = SPECS["fr"]
+    rng = np.random.default_rng(steps)
+    vals = [[int.from_bytes(rng.bytes(32), "little") % spec.modulus for _ in range(steps)]
+            for _ in range(3)]
+    v_ref = ref.encode(rspec, vals)
+    v = convert.limbs_from_ref(v_ref, "cpu")
+    _same(limbs.prefix_scan_mul(spec, v), ref.prefix_scan_mul(rspec, jnp.asarray(v_ref)))
+    if steps <= 33:
+        _same(limbs.seq_scan_mul_plain(spec, v), ref.prefix_scan_mul(rspec, jnp.asarray(v_ref)))

@@ -197,3 +197,14 @@ def test_scan_packed_team_sizes():
     teams = [pcurve.scan_packed_team(m) for m in (1, 1001, 3328, 4096, 4097, 6656, 26624)]
     assert teams == [8, 8, 8, 8, 2, 2, 2]
     assert all(t in pcurve.SCAN_TEAMS for t in teams)
+
+
+def test_scan_steps_team_sizes():
+    """K5's threads per lane: 8 up to 4,096 lanes, so that the block-total
+    prefix of a k = 14 MSM (104-832 lanes of 32 steps, 26-208 of 4) and the
+    projective MSM's scan of one column (3,328 lanes of 128) take 8, and its
+    scans of 2 and 8 columns (6,656 and 26,624 lanes) take 2."""
+    teams = [pcurve.scan_steps_team(m) for m in (1, 26, 104, 832, 3328, 4096, 4097, 6656,
+                                                 26624)]
+    assert teams == [8, 8, 8, 8, 8, 8, 2, 2, 2]
+    assert all(t in pcurve.SCAN_TEAMS for t in teams)

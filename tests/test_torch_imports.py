@@ -1,15 +1,19 @@
 """Guards of the PyTorch/CUDA port (`ezkl_tpu_torch`):
 
 * neither the package nor its card scripts (`chip_smoke.py`,
-  `tools/profile_torch_prove.py`) import `jax` or the JAX package
-  `ezkl_tpu` (checked on the source with `ast`);
-* every kernel wrapper (K1 mont_mul, K2 bfly, K3 point_add, K9 point_dbl,
-  and the fused MSM's K4 scan_packed, K5 scan_steps and K6 fold_lanes in
-  both variants, K7 dbl_pow2, K8 horner) raises when its kernel cannot be
-  built, instead of falling back to the plain version; and a tensor on the
-  card always takes the kernel route.
+  `tools/profile_torch_prove.py`, `tools/bench_msm_kernels.py`) import
+  `jax` or the JAX package `ezkl_tpu` (checked on the source with `ast`);
+* every kernel wrapper (K1 mont_mul and its chain forms mont_pow and
+  mont_scan, K2 bfly, K3 point_add, K9 point_dbl, and the fused MSM's K4
+  scan_packed, K5 scan_steps and K6 fold_lanes in both variants, K7
+  dbl_pow2, K8 horner) raises when its kernel cannot be built, instead of
+  falling back to the plain version; and a tensor on the card always takes
+  the kernel route;
+* on the card a Fermat inversion is one launch and a batch inversion runs
+  its scan blocks as single launches, not one per product.
 
-No card is needed: the build is mocked.
+No card is needed: the build is mocked, or replaced by a library that
+records its calls.
 """
 
 import ast
@@ -31,7 +35,8 @@ torch.set_num_threads(1)     # small tensors; pytest-xdist runs one worker per c
 
 def _sources():
     files = sorted((ROOT / "ezkl_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_prove.py"]
+        ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_prove.py",
+        ROOT / "tools" / "bench_msm_kernels.py"]
     assert len(files) > 10
     return files
 
@@ -82,6 +87,8 @@ def _msm_call():
 
 KERNEL_CALLS = {
     "mont_mul": lambda: limbs._mont_mul_kernel(FR, _field(), _field()),
+    "mont_pow": lambda: limbs._mont_pow_kernel(FR, _field(), FR.modulus - 2),
+    "mont_scan": lambda: limbs._mont_scan_kernel(FR, _field(32)),
     "bfly": lambda: pntt._bfly_kernel(FR, _field(), _field(1)),
     "point_add": lambda: pcurve._launch("point_add", "ez_point_add", (*_points(), *_points())),
     "point_dbl": lambda: pcurve._launch("point_dbl", "ez_point_dbl", tuple(_points())),
@@ -96,6 +103,8 @@ KERNEL_CALLS = {
 
 PUBLIC_CALLS = {
     "mont_mul": lambda: limbs.mont_mul(FR, _field(), _field()),
+    "mont_pow": lambda: limbs.inv(FR, _field()),
+    "mont_scan": lambda: limbs.prefix_scan_mul(FR, _field(40)),
     "bfly": lambda: pntt.bfly(FR, _field(), _field(1)),
     "point_add": lambda: curve.add(_points(), _points()),
     "point_dbl": lambda: curve.dbl(_points()),
@@ -140,6 +149,57 @@ def test_card_tensors_take_the_kernel_route(monkeypatch, name):
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     with pytest.raises(RuntimeError, match="nvcc"):
         PUBLIC_CALLS[name]()
+
+
+class _RecordingLib:
+    """A kernel library that launches nothing and records each entry called."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            return 0
+        return entry
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """CPU tensors that pass for card tensors, and a recording library."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "_LIB", lib)
+    monkeypatch.setattr(build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    build.reset_launches()
+    yield lib
+    build.reset_launches()
+
+
+def test_inv_on_the_card_is_one_launch(card):
+    """A Fermat inversion (a^(p-2): 309 products in Fr by the sliding window)
+    is one `mont_pow` launch, whatever the width."""
+    for n in (1, 8, 64):
+        card.calls.clear()
+        limbs.inv(FR, _field(n))
+        assert card.calls == ["ez_mont_pow"]
+    assert build.LAUNCHES["mont_pow"] == 3
+    assert sum(build.LAUNCHES.values()) == 3
+    assert [w[:3] for w in build.WIDTHS] == [("mont_pow", "bn254_fr", n) for n in (1, 8, 64)]
+    assert build.WIDTHS[0][3] == 8 + 252 + 49         # table, squarings, windows
+
+
+def test_batch_inv_on_the_card_scans_in_blocks(card):
+    """`batch_inv` of 64 elements: each of its two scans is one `mont_scan`
+    per 32-step block level (local blocks, then their totals) and one
+    combine, then one `mont_pow` and two products -- 9 launches, where a
+    launch per product took over 500."""
+    limbs.batch_inv(FR, _field(64))
+    assert build.LAUNCHES["mont_scan"] == 4
+    assert build.LAUNCHES["mont_pow"] == 1
+    assert build.LAUNCHES["mont_mul"] == 4
+    assert sum(build.LAUNCHES.values()) == 9
+    assert [w[2:] for w in build.WIDTHS if w[0] == "mont_scan"] == [(64, 62), (2, 1)] * 2
 
 
 def test_cuh_constants_match_the_field_specs():

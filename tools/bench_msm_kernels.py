@@ -5,8 +5,8 @@
 
 Builds the kernels (printing ptxas' registers and spills), then runs
 `chip_smoke.check_msm_kernels`: K4-K8 against their plain versions at the
-k = 14 main path's shapes, bit-exact, with K4 at every team size, one JSON
-`kernel` line each with device times and bounds. With `--sass`, prints for
+k = 14 main path's shapes, bit-exact, with K4 and K5 at every team size, one
+JSON `kernel` line each with device times and bounds. With `--sass`, prints for
 each kernel of `msm.cu` its SASS instruction count by opcode (cuobjdump), so
 the instruction mix of a design can be read beside its time. Needs one CUDA
 card; prints the card's name and power limit first.

@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
-"""Run the port's CUDA kernels on the CPU, to rehearse `csrc/msm.cu` without a card.
+"""Run the port's CUDA kernels on the CPU, to rehearse `csrc/*.cu` without a card.
 
-    python3 tools/emulate_msm_kernels.py
+    python3 tools/emulate_msm_kernels.py [--prove]
 
 Compiles `ezkl_tpu_torch/csrc/*.cu` with g++ against `tools/cuda_emu/`, a
 stand-in for the few CUDA pieces the kernels use (one std::thread per CUDA
 thread, the blocks one after another, `__syncwarp` a barrier of the block),
 with each `kernel<<<grid, block, smem, stream>>>(args)` rewritten into a call
 of its emulated launch; the PTX carry helpers of `bn254.cuh` take their C
-branch. Then holds K4 (at each team size, with pad pairs and a ragged last
-block), K5 (both variants) and K8 (edge shapes, identities only) on CPU
-tensors at tiny shapes against their plain versions, bit-exact. It checks
+branch. Then holds K1's chain forms (`ez_mont_pow` in both fields with
+zeros in the batch, `ez_mont_scan` over one and several rows), K4 (at each
+team size, with pad pairs and a ragged last block), K5 (both variants at
+each team size, with identities and a ragged last block) and K8 (edge
+shapes, identities only) on CPU tensors at tiny shapes against their plain
+versions, bit-exact. It checks
 the kernels' logic (indices, teams, barriers, carries) and times nothing;
 what only the card can show -- that nvcc accepts the source, the PTX, the
-speed -- still needs `chip_smoke.py` there. Exits non-zero on a mismatch.
+speed -- still needs `chip_smoke.py` there. With `--prove` it then keys and
+proves both K=4 circuits of `tests/torch_port_circuits.py` with every kernel
+wrapper taking its card route into the emulated library (CPU tensors pass
+for card tensors), and compares each proof with the JAX package's frozen in
+`tests/fixtures/torch_port/` (~80 s). Exits non-zero on a mismatch.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import json
 import pathlib
 import subprocess
 import sys
@@ -31,7 +40,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from ezkl_tpu_torch.fieldmath import curve, limbs  # noqa: E402
-from ezkl_tpu_torch.fieldmath.spec import bn254_fq  # noqa: E402
+from ezkl_tpu_torch.fieldmath.spec import bn254_fq, bn254_fr  # noqa: E402
 from ezkl_tpu_torch.kernels import build, pcurve  # noqa: E402
 
 OUT = ROOT / "build" / "emu"
@@ -94,7 +103,42 @@ def build_library() -> ctypes.CDLL:
     return handle
 
 
+def prove_through_the_kernel_routes(lib) -> list:
+    """Both K=4 circuits proved with every wrapper on its kernel route into
+    `lib`; returns the names of the circuits whose proof is not byte-equal to
+    the frozen reference or does not verify."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_port_circuits as circuits
+    from ezkl_tpu_torch.plonk import cs as csmod, keygen, prover, srs as srsmod, verifier
+    from ezkl_tpu_torch.plonk.assign import Assignment
+
+    build._LIB = lib
+    build.stream_of = lambda t: None
+    torch.Tensor.is_cuda = property(lambda self: True)
+    srs = srsmod.gen_srs(circuits.K, device="cpu")
+    failed = []
+    for name in sorted(circuits.CIRCUITS):
+        fx = json.loads((ROOT / "tests" / "fixtures" / "torch_port" / f"{name}.json").read_text())
+        make, fill = circuits.CIRCUITS[name]
+        system, cols = make(csmod)
+        asg = fill(system, cols, Assignment)
+        pk = keygen.keygen(system, circuits.K, srs, asg, device="cpu")
+        build.reset_launches()
+        proof = prover.create_proof(pk, srs, asg, seed=fx["seed"])
+        same = proof.to_json() == fx["proof"]
+        ok = verifier.verify(pk.vk, srs.g2, srs.s_g2, proof)
+        print(f"prove {name}: byte-equal {same}, verifies {ok}, launches",
+              json.dumps(build.LAUNCHES), flush=True)
+        if not (same and ok):
+            failed.append(f"prove {name}")
+    return failed
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--prove", action="store_true",
+                    help="also prove the K=4 circuits through the emulated kernels")
+    args = ap.parse_args()
     torch.set_num_threads(4)
     lib = build_library()
 
@@ -130,12 +174,18 @@ def main() -> int:
             check(f"scan_packed team={team} S={S} lanes={L}",
                   call("ez_scan_packed", [x, y, sn], (S, L), (L, S, team)),
                   pcurve.scan_packed_plain(x, y, sn))
-    S, L = 4, 5
-    Pq, Pa = cs._gather(P, idx(S, L)), cs._gather((ax, ay), idx(S, L))
-    check("scan_steps complete", call("ez_scan_steps", list(Pq), (S, L), (L, S), pre=(0,)),
-          pcurve.scan_steps_plain(curve.PointP(*Pq)))
-    check("scan_steps mixed", call("ez_scan_steps", list(Pa) + [None], (S, L), (L, S), pre=(1,)),
-          pcurve.scan_steps_plain(Pa))
+    for team in pcurve.SCAN_TEAMS:
+        for S, L in ((4, 5), (3, 70)):
+            mask = torch.zeros(S, L, dtype=torch.bool)
+            mask[0, 0] = mask[min(2, S - 1), 1] = True
+            Pq = cs._set(cs._gather(P, idx(S, L)), mask, ident)
+            Pa = cs._gather((ax, ay), idx(S, L))
+            check(f"scan_steps complete team={team} S={S} lanes={L}",
+                  call("ez_scan_steps", list(Pq), (S, L), (L, S, team), pre=(0,)),
+                  pcurve.scan_steps_plain(curve.PointP(*Pq)))
+            check(f"scan_steps mixed team={team} S={S} lanes={L}",
+                  call("ez_scan_steps", list(Pa) + [None], (S, L), (L, S, team), pre=(1,)),
+                  pcurve.scan_steps_plain(Pa))
     for W, c, C, everyone in ((4, 3, 3, False), (1, 1, 1, False), (3, 2, 2, True)):
         mask = torch.full((W, C), everyone)
         mask[0, 0] = True
@@ -143,6 +193,36 @@ def main() -> int:
         check(f"horner W={W} c={c} width={C}{' identities' if everyone else ''}",
               call("ez_horner", list(V), (C,), (W, c, C)),
               pcurve.horner_plain(curve.PointP(*V), c))
+    for spec in (bn254_fr(), bn254_fq()):
+        p = spec.modulus
+        vals = [0, 1, p - 1] + [int.from_bytes(rng.bytes(32), "little") % p for _ in range(34)]
+        vals[20] = 0
+        a = limbs.to_device(limbs.encode(spec, vals), dev)
+        for e in (1, 2, 3, 0x10001, p - 2, (1 << 255) + 1, (1 << 256) - 1):
+            out = torch.empty_like(a)
+            first, windows, trailing, _ = limbs.pow_schedule(e)
+            sq = (ctypes.c_uint8 * 64)(*(w[0] for w in windows))
+            dig = (ctypes.c_uint8 * 64)(*(w[1] for w in windows))
+            rc = lib.ez_mont_pow(limbs._FIELD_ID[spec.name], a.data_ptr(), out.data_ptr(),
+                                 a.shape[1], ctypes.addressof(sq), ctypes.addressof(dig),
+                                 len(windows), first, trailing, None)
+            if rc:
+                raise RuntimeError(f"ez_mont_pow returned {rc}")
+            check(f"mont_pow {spec.name} e={'p-2' if e == p - 2 else hex(e)} n=37",
+                  [out], [limbs.pow_static_plain(spec, a, e)])
+        for rows, steps in ((1, 32), (3, 17), (5, 1), (40, 33)):
+            v = limbs.to_device(limbs.encode(spec, [
+                int.from_bytes(rng.bytes(32), "little") % p for _ in range(rows * steps)]),
+                dev).reshape(8, rows, steps)
+            out = torch.empty_like(v)
+            rc = lib.ez_mont_scan(limbs._FIELD_ID[spec.name], v.data_ptr(), out.data_ptr(),
+                                  rows, steps, None)
+            if rc:
+                raise RuntimeError(f"ez_mont_scan returned {rc}")
+            check(f"mont_scan {spec.name} rows={rows} steps={steps}",
+                  [out], [limbs.seq_scan_mul_plain(spec, v)])
+    if args.prove:
+        failed += prove_through_the_kernel_routes(lib)
     print("FAILED: " + ", ".join(failed) if failed else "all bit-exact")
     return 1 if failed else 0
 

@@ -21,12 +21,14 @@ them, then one JSON line:
   top             device operations by total time: name, count, total_ms
   launches        kernel launches of the timed create_proof (`build.LAUNCHES`)
   point_launches  the point kernels' share of them (K3-K9)
-  widths          K1 and K2 launches of the profiled create_proof per kernel,
-                  field and power-of-two width (`build.WIDTHS`), each with the
-                  device ms of those launches (the i-th launch of a kernel is
-                  the i-th device event of its name), their summed bound and
-                  the gap between the two (`<kernel>_unpaired`
-                  says so where the counts or fields do not pair)
+  widths          K1 (its three forms: mont_mul, mont_pow, mont_scan) and K2
+                  launches of the profiled create_proof per kernel, field
+                  and power-of-two width (`build.WIDTHS`; elements, for
+                  mont_scan rows x steps), each with the device ms of those
+                  launches (the i-th launch of a kernel is the i-th device
+                  event of its name), their summed bound and the gap
+                  between the two (`<kernel>_unpaired` says so where the
+                  counts or fields do not pair)
 
 Needs one CUDA card and exits non-zero without one, or when the profiler
 records no device activity.
@@ -51,13 +53,17 @@ import chip_smoke  # noqa: E402
 TOP = 15
 
 
-def _bound_ms(kernel, n):
-    """`chip_smoke.bound` of one K1 launch of n products (three operands of
-    32 B each) or K2 launch over n elements (read and written once; the
-    twiddles, at most half as many, left out, so this is a floor)."""
-    if kernel == "mont_mul":
-        return chip_smoke.bound(96 * n, chip_smoke.IMAD_PER_MONT_MUL * n)[0]
-    return chip_smoke.bound(64 * n, chip_smoke.IMAD_PER_MONT_MUL * n // 2)[0]
+# bytes per element of a launch: K1 reads two operands and writes one; its
+# chain forms and K2 read and write each element once (K2's twiddles, at most
+# half as many, left out, so its bound is a floor)
+BYTES_PER_ELEMENT = {"mont_mul": 96, "mont_pow": 64, "mont_scan": 64, "bfly": 64}
+
+
+def _bound_ms(kernel, n, products):
+    """`chip_smoke.bound` of one launch over n elements with `products`
+    Montgomery products."""
+    return chip_smoke.bound(BYTES_PER_ELEMENT[kernel] * n,
+                            chip_smoke.IMAD_PER_MONT_MUL * products)[0]
 
 
 def _widths(ops, widths):
@@ -68,18 +74,18 @@ def _widths(ops, widths):
     hist = build.width_histogram(widths)
     out = {key: {w: {"launches": c, "device_ms": 0.0, "bound_ms": 0.0} for w, c in row.items()}
            for key, row in hist.items()}
-    for kernel in ("mont_mul", "bfly"):
-        mine = [(f, n) for k, f, n in widths if k == kernel]
+    for kernel in BYTES_PER_ELEMENT:
+        mine = [(f, n, prods) for k, f, n, prods in widths if k == kernel]
         events = sorted((s, d, name) for s, d, name in ops if f"{kernel}_kernel" in name)
         if len(mine) != len(events) or any(
                 f"{'Fr' if f.endswith('fr') else 'Fq'}>" not in name
-                for (f, _), (_, _, name) in zip(mine, events)):
+                for (f, _, _), (_, _, name) in zip(mine, events)):
             out[f"{kernel}_unpaired"] = f"{len(mine)} launches, {len(events)} device events"
             continue
-        for (field, n), (_, ns, _) in zip(mine, events):
+        for (field, n, prods), (_, ns, _) in zip(mine, events):
             cell = out[f"{kernel}/{field}"][f"2^{(n - 1).bit_length()}"]
             cell["device_ms"] += ns / 1e6
-            cell["bound_ms"] += _bound_ms(kernel, n)
+            cell["bound_ms"] += _bound_ms(kernel, n, prods)
     for row in out.values():
         for cell in row.values() if isinstance(row, dict) else ():
             cell["gap_ms"] = cell["device_ms"] - cell["bound_ms"]
