@@ -10,7 +10,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 3. kernels -- every kernel of the port (K1 Montgomery multiply, elementwise
               and in its chain forms mont_pow (a^(p-2) per element) and
               mont_scan (prefix product of rows of steps), K2 NTT
-              butterfly, K3 point add, K9 point doubling, and the fused
+              butterfly stages (ntt_stages: every pass of k = 1 .. 17,
+              forward and inverse, and a line per whole transform at the
+              prove's 1 x 2^14, 8 x 2^14 and 16 x 2^17 with a sweep of its
+              groups per block), K3 point add (at every team size and every
+              width the prove launches it) and its tree form point_reduce
+              (G = 26 and 208 groups of 128), K9 point doubling, and the fused
               MSM's K4 packed signed scan, K5 point prefix scan and K6
               bucket fold in both variants, K7 2^c doubling, K8 Horner
               combine) against its plain PyTorch version on the card,
@@ -37,15 +42,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
               are reset just before gen_srs and create_proof and read just
               after each: K1 (all three forms) to K8 must be > 0 in
               create_proof (whose commitments run the fused MSM), K9 in
-              gen_srs.
+              gen_srs; K2 must run two passes per transform, K3 (single
+              and tree) at most 20 times.
 5. check   -- 2^14-point MSMs on the card against the host MSM: the fused
               pipeline on the SRS points (affine=True, as commitments run it,
               and affine=False) and the unfused one (K9 must be > 0 there);
               and an NTT round trip at 2^17
 
 Then a `times` line (seconds of phases 3-5), the `kernels` summary line
-(times, bounds, launches: K1's three forms and K2-K8 from create_proof, K9
-from gen_srs), the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+(times, bounds, launches: K1's three forms, K2, K3's two forms and K4-K8
+from create_proof, K9 from gen_srs), the nvidia-smi line, and last
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -80,8 +87,11 @@ KERNEL_META = {
     # block scans, which the TPU ran through the same kernel in a `lax.scan`
     "mont_pow": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/fieldmath/limbs.py:682"),
     "mont_scan": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/fieldmath/limbs.py:682"),
-    "bfly": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/kernels/pntt.py:31"),
+    "ntt_stages": ("ezkl_tpu_torch/csrc/field.cu", "ezkl_tpu/kernels/pntt.py:31"),
     "point_add": ("ezkl_tpu_torch/csrc/curve.cu", "ezkl_tpu/kernels/pcurve.py:199"),
+    # K3's tree form: the halving levels of `reduce_pairwise`, which the TPU
+    # ran as one `_add_call` each
+    "point_reduce": ("ezkl_tpu_torch/csrc/curve.cu", "ezkl_tpu/kernels/pcurve.py:199"),
     "point_dbl": ("ezkl_tpu_torch/csrc/curve.cu", "ezkl_tpu/kernels/pcurve.py:215"),
     "scan_packed": ("ezkl_tpu_torch/csrc/msm.cu", "ezkl_tpu/kernels/pcurve.py:322"),
     "scan_steps": ("ezkl_tpu_torch/csrc/msm.cu", "ezkl_tpu/kernels/pcurve.py:259"),
@@ -89,8 +99,11 @@ KERNEL_META = {
     "dbl_pow2": ("ezkl_tpu_torch/csrc/msm.cu", "ezkl_tpu/kernels/pcurve.py:647"),
     "horner": ("ezkl_tpu_torch/csrc/msm.cu", "ezkl_tpu/kernels/pcurve.py:557"),
 }
-POINT_KERNELS = ("point_add", "point_dbl", "scan_packed", "scan_steps", "fold_lanes",
-                 "dbl_pow2", "horner")
+POINT_KERNELS = ("point_add", "point_reduce", "point_dbl", "scan_packed", "scan_steps",
+                 "fold_lanes", "dbl_pow2", "horner")
+# K3's launches per k = 14 prove: each of its 5 fused MSMs adds the bucket
+# combine, the prefix combine and V once each and runs the halving tree once
+K3_LAUNCHES_MAX = 20
 
 
 def emit(obj):
@@ -219,7 +232,7 @@ def check_kernels(dev, rng):
     import torch
     from ezkl_tpu_torch.fieldmath import limbs, curve
     from ezkl_tpu_torch.fieldmath.spec import bn254_fr, bn254_fq
-    from ezkl_tpu_torch.kernels import pntt, pcurve, build
+    from ezkl_tpu_torch.kernels import pcurve, build
 
     FR, FQ = bn254_fr(), bn254_fq()
     rows = {}
@@ -268,23 +281,7 @@ def check_kernels(dev, rng):
 
     rows.update(check_field_chains(dev, rng))
 
-    # K2: every stage shape of a 2^17 NTT (extended domain); time the last
-    n = 1 << 17
-    x, _ = field_inputs(FR, n, rng, dev)
-    tw = limbs.to_device(limbs.encode(FR, [int.from_bytes(rng.bytes(32), "little")
-                                           for _ in range(n // 2)]), dev)
-    for log_half in range(17):
-        w = tw[:, : 1 << log_half].contiguous()
-        err = max_abs_err([pntt._bfly_kernel(FR, x, w)], [pntt.bfly_plain(FR, x, w)])
-        if err:
-            raise AssertionError(f"bfly kernel != plain (half=2^{log_half})")
-    kern = lambda y, t: pntt._bfly_kernel(FR, y, t)                  # noqa: E731
-    row = dict(field=FR.name, n=n, half=n // 2, max_abs_err=0,
-               **timings(kern, [x, w], lambda y, t: pntt.bfly_plain(FR, y, t)))
-    row["bound_ms"], row["bound_by"] = bound(2 * 32 * n + 32 * (n // 2),
-                                             IMAD_PER_MONT_MUL * (n // 2))
-    emit({"phase": "kernel", "kernel": "bfly", "stages_checked": 17, **row})
-    rows["bfly"] = row
+    rows.update(check_ntt_stages(dev, rng))
 
     # K3 / K9 on projective multiples of G1 with nontrivial Z, plus edges
     for n in (1 << 14, 1 << 17):
@@ -303,7 +300,7 @@ def check_kernels(dev, rng):
         P2, Q = P2.map(torch.Tensor.contiguous), Q.map(torch.Tensor.contiguous)
         for name, inputs, kern, plain, muls in (
                 ("point_add", [*P2, *Q],
-                 lambda *t: pcurve._launch("point_add", "ez_point_add", t),
+                 lambda *t: pcurve._add_launch(t, pcurve.point_add_team(n)),
                  lambda *t: pcurve.point_add_plain(curve.PointP(*t[:3]), curve.PointP(*t[3:])),
                  12),
                 ("point_dbl", list(P2),
@@ -311,7 +308,8 @@ def check_kernels(dev, rng):
                  lambda *t: pcurve.point_dbl_plain(curve.PointP(*t)), 8)):
             nin = len(inputs)
             err = max_abs_err(kern(*inputs), plain(*inputs))
-            row = dict(n=n, max_abs_err=err, **timings(kern, inputs, plain))
+            row = dict(n=n, max_abs_err=err, **timings(kern, inputs, plain),
+                       **({"team": pcurve.point_add_team(n)} if name == "point_add" else {}))
             row["bound_ms"], row["bound_by"] = bound((nin + 3) * 32 * n,
                                                      muls * IMAD_PER_MONT_MUL * n)
             emit({"phase": "kernel", "kernel": name, **row})
@@ -325,8 +323,95 @@ def check_kernels(dev, rng):
         d = curve.decode_points(pcurve.point_dbl(P).map(lambda t: t[:, 1:2]))
         if not (s[0] == p0[0] and s[1] == d[0] and s[2] is None and s[3] is None):
             raise AssertionError("point_add edge lanes wrong")
+    rows.update(check_point_adds(dev, rng))
     rows.update(check_msm_kernels(dev, rng))
     build.reset_launches()        # comparison launches do not count
+    return rows
+
+
+# The prove's transforms at k = 14: 2^14 points, one column (the iNTTs of
+# single polynomials) or 8 (the batched domain changes), and 16 columns of
+# the 2^17-point extended domain.
+NTT_SHAPES = ((1, K), (8, K), (16, 17))
+
+
+def check_ntt_stages(dev, rng):
+    """K2 against its plain version, bit-exact: every pass (s0, r) of every
+    k = 1 .. 17, forward and inverse, over two columns; `bfly` (r = 1) at
+    three stage widths. Then per whole transform at the prove's shapes
+    (`NTT_SHAPES`): a `kernel` line for its passes (the K2 launches of one
+    NTT, on its bit-reversed input) and a sweep of the groups per block of
+    each pass. Returns the row at one column of 2^14."""
+    import torch
+    from ezkl_tpu_torch.fieldmath import limbs
+    from ezkl_tpu_torch.fieldmath.spec import bn254_fr
+    from ezkl_tpu_torch.kernels import ntt, pntt
+
+    FR = bn254_fr()
+
+    def elements(n):
+        return limbs.to_device(limbs.encode(FR, [
+            int.from_bytes(rng.bytes(32), "little") % FR.modulus for _ in range(n)]), dev)
+
+    checked = 0
+    for k in range(1, 18):
+        for inverse in (False, True):
+            tw = ntt.twiddles(FR, k, inverse, dev)
+            x = elements(2 << k).reshape(8, 2, 1 << k)
+            for s0 in range(k):
+                want = x
+                for r in range(1, min(pntt.MAX_STAGES, k - s0) + 1):
+                    want = pntt.bfly_plain(FR, want, pntt.stage_twiddles(tw, k, s0 + r))
+                    if max_abs_err([pntt._stages_kernel(FR, x, tw, k, s0, r)], [want]):
+                        raise AssertionError(f"ntt_stages kernel != plain (k={k}, s0={s0}, "
+                                             f"r={r}, inverse={inverse})")
+                    checked += 1
+    x = elements(1 << 17)
+    for log_half in (0, 5, 16):
+        w = elements(1 << log_half)
+        if max_abs_err([pntt.bfly(FR, x, w)], [pntt.bfly_plain(FR, x, w)]):
+            raise AssertionError(f"bfly kernel != plain (half=2^{log_half})")
+    emit({"phase": "kernel", "kernel": "ntt_stages", "passes_checked": checked, "k": "1-17",
+          "directions": ["forward", "inverse"], "columns": 2,
+          "bfly_halves_checked": [1, 32, 1 << 16], "max_abs_err": 0})
+
+    rows = {}
+    for cols, k in NTT_SHAPES:
+        n = 1 << k
+        tw = ntt.twiddles(FR, k, False, dev)
+        split = pntt.pass_split(k)
+        x = elements(cols * n).reshape(8, cols, n)[..., ntt._bitrev(k, dev)].contiguous()
+
+        def kern(y, split=split, tw=tw, k=k):
+            for s0, r in split:
+                y = pntt._stages_kernel(FR, y, tw, k, s0, r)
+            return y
+
+        def plain(y, split=split, tw=tw, k=k):
+            for s0, r in split:
+                y = pntt.stages_plain(FR, y, tw, k, s0, r)
+            return y
+
+        row = run_kernel("ntt_stages", kern, plain, [x], len(split) * 2 * 32 * cols * n,
+                         k * (n // 2) * cols * IMAD_PER_MONT_MUL, reps=20, field=FR.name,
+                         columns=cols, k=k, passes=len(split), launches_per_ntt=len(split),
+                         whole_ntt=True)
+        if (cols, k) == (1, K):
+            rows["ntt_stages"] = row
+        for s0, r in split:
+            chosen = pntt.groups_per_block(cols, k, s0, r)
+            cap = pntt.max_log_groups(k, s0, r)
+            for log_gb in range(cap + 1):
+                one = lambda y, s0=s0, r=r, g=log_gb: pntt._stages_kernel(   # noqa: E731
+                    FR, y, tw, k, s0, r, g)
+                emit({"phase": "kernel", "kernel": "ntt_stages", "gb_sweep": True,
+                      "columns": cols, "k": k, "s0": s0, "r": r, "groups_per_block": 1 << log_gb,
+                      "chosen": log_gb == chosen,
+                      "ms": device_ms(one, [x], reps=20),
+                      "l2_ms": device_ms(one, [x], cold=False, reps=20),
+                      "bound_ms": bound(2 * 32 * cols * n, r * (n // 2) * cols *
+                                        IMAD_PER_MONT_MUL)[0]})
+        del x
     return rows
 
 
@@ -371,6 +456,58 @@ def check_field_chains(dev, rng):
                          steps=steps)
         if r == 512:
             rows["mont_scan"] = row
+    return rows
+
+
+def check_point_adds(dev, rng):
+    """K3 at the fused MSM's widths, bit-exact against the plain versions,
+    with identity lanes: the tree form at G = 26 and 208 groups of w = 128
+    partials (one column and eight), and the single add at every width the
+    k = 14 prove launches it (the bucket combine at C * 13,312 lanes, the
+    prefix combine at C * 3,328, V at C * 26, C = 1 or 8) and at 1,664, each
+    at every team size, then at the size `point_add_team` picks with the
+    plain version timed. Returns the tree's row at G = 208."""
+    import torch
+    from ezkl_tpu_torch.fieldmath import curve, limbs
+    from ezkl_tpu_torch.fieldmath.spec import bn254_fq
+    from ezkl_tpu_torch.kernels import pcurve
+
+    P, _ = _pool(dev, rng)
+    zero = torch.zeros(8, dtype=torch.int32, device=dev)
+    ident = (zero, limbs.const(bn254_fq(), 1, device=dev), zero)
+    mm = IMAD_PER_MONT_MUL
+    rows = {}
+
+    def points(*shape):
+        idx = torch_index(rng.integers(0, P.x.shape[1], size=shape), dev)
+        mask = torch_index(rng.random(shape) < 0.05, dev).bool()
+        mask.view(-1)[0] = True
+        return list(_set(_gather(P, idx), mask, ident))
+
+    for G in (MSM_W, 8 * MSM_W):
+        w = 128
+        row = run_kernel("point_reduce", lambda *t: pcurve._reduce_kernel(curve.PointP(*t)),
+                         lambda *t: pcurve.reduce_pairwise_plain(curve.PointP(*t)),
+                         points(G, w), 3 * 32 * G * w + 96 * G, 12 * mm * (w - 1) * G,
+                         reps=20, groups=G, w=w)
+        rows["point_reduce"] = row
+    for n in (106496, 26624, 13312, 3328, 1664, 208, 26):
+        inputs = points(n) + points(n)
+        nbytes, imad = 9 * 32 * n, 12 * mm * n
+        want = pcurve.point_add_plain(curve.PointP(*inputs[:3]), curve.PointP(*inputs[3:]))
+        for team in pcurve.ADD_TEAMS:
+            kern = lambda *t: pcurve._add_launch(t, team)                  # noqa: E731
+            err = max_abs_err(kern(*inputs), want)
+            row = dict(max_abs_err=err, team=team, lanes=n, ms=device_ms(kern, inputs, reps=20),
+                       l2_ms=device_ms(kern, inputs, cold=False, reps=20))
+            row["bound_ms"], row["bound_by"] = bound(nbytes, imad)
+            emit({"phase": "kernel", "kernel": "point_add", "team_sweep": True, **row})
+            if err:
+                raise AssertionError(f"point_add kernel != plain (team {team}, {n} lanes)")
+        run_kernel("point_add", lambda *t: pcurve._add_launch(t, pcurve.point_add_team(n)),
+                   lambda *t: pcurve.point_add_plain(curve.PointP(*t[:3]),
+                                                     curve.PointP(*t[3:])),
+                   inputs, nbytes, imad, reps=20, lanes=n, team=pcurve.point_add_team(n))
     return rows
 
 
@@ -633,7 +770,7 @@ def build_circuit(rng, k=K):
 
 def prove(dev, rng):
     import torch
-    from ezkl_tpu_torch.kernels import build
+    from ezkl_tpu_torch.kernels import build, ntt, pntt
     from ezkl_tpu_torch.plonk import keygen, prover, srs as srsmod, verifier
 
     cs, asg, use = build_circuit(rng)
@@ -648,13 +785,27 @@ def prove(dev, rng):
     torch.cuda.synchronize()
     t_keygen = time.perf_counter() - t0
 
+    # count the transforms of the prove and the K2 passes they need
+    transforms = {"calls": 0, "passes": 0}
+    plain_ntt = ntt.ntt
+
+    def counted_ntt(spec, coeffs, inverse=False):
+        if coeffs.shape[-1] > 1 and coeffs.numel():
+            transforms["calls"] += 1
+            transforms["passes"] += len(pntt.pass_split(coeffs.shape[-1].bit_length() - 1))
+        return plain_ntt(spec, coeffs, inverse)
+
     torch.cuda.reset_peak_memory_stats()
+    ntt.ntt = counted_ntt
     build.reset_launches()
-    t0 = time.perf_counter()
-    proof = prover.create_proof(pk, srs, asg, seed=SEED)
-    torch.cuda.synchronize()
-    t_prove = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
+    try:
+        t0 = time.perf_counter()
+        proof = prover.create_proof(pk, srs, asg, seed=SEED)
+        torch.cuda.synchronize()
+        t_prove = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    finally:
+        ntt.ntt = plain_ntt
 
     t0 = time.perf_counter()
     ok = verifier.verify(pk.vk, srs.g2, srs.s_g2, proof)
@@ -668,6 +819,8 @@ def prove(dev, rng):
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
           "launches": launches, "gen_srs_launches": srs_launches,
           "point_launches": sum(launches[k] for k in POINT_KERNELS),
+          "ntt_calls": transforms["calls"], "ntt_passes": transforms["passes"],
+          "k3_launches": launches["point_add"] + launches["point_reduce"],
           "verified": ok, "tampered_rejected": rejected})
     if not ok:
         raise AssertionError("the port's verifier rejected the k=14 proof")
@@ -678,6 +831,12 @@ def prove(dev, rng):
         raise AssertionError(f"kernels not launched by create_proof: {missing}")
     if srs_launches["point_dbl"] <= 0:
         raise AssertionError("point_dbl not launched by gen_srs")
+    if not (launches["ntt_stages"] == transforms["passes"] == 2 * transforms["calls"]):
+        raise AssertionError(f"ntt_stages launched {launches['ntt_stages']} times for "
+                             f"{transforms['calls']} transforms of 2 passes each")
+    if launches["point_add"] + launches["point_reduce"] > K3_LAUNCHES_MAX:
+        raise AssertionError(f"K3 launched {launches['point_add']} + "
+                             f"{launches['point_reduce']} times, above {K3_LAUNCHES_MAX}")
     return srs, launches, srs_launches
 
 
@@ -776,7 +935,7 @@ def main() -> int:
          "shape": {k: v for k, v in rows[name].items()
                    if k in ("field", "n", "rows", "lanes", "steps", "groups", "chunks", "blk",
                             "c", "windows", "width", "columns", "team", "variant",
-                            "exponent")}}
+                            "exponent", "k", "passes", "w")}}
         for name, (src, rep) in KERNEL_META.items()],
         "create_proof_point_dbl_launches": launches["point_dbl"],
         "unfused_msm_point_dbl_launches": unfused_launches["point_dbl"]})

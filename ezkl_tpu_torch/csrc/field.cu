@@ -1,5 +1,5 @@
 // Field kernels of the port: K1 (Montgomery multiply, elementwise and in
-// product chains) and K2 (NTT butterfly).
+// product chains) and K2 (NTT butterfly stages).
 //
 // K1 replaces the TPU kernel `_pl_mul_call` of ezkl_tpu/fieldmath/limbs.py
 // (entry `_mont_mul_pallas`), in three forms over Fr or Fq, canonical in and
@@ -20,19 +20,35 @@
 //   ez_mont_scan  the inclusive prefix product along the last axis of an
 //                 (8, rows, steps) array: the sequential block scan of the JAX
 //                 package's `prefix_scan_mul`, also a `lax.scan`.
-// K2 ez_bfly replaces `_bfly_call` of ezkl_tpu/kernels/pntt.py (entry `bfly`):
-// one radix-2 stage (a + b*w, a - b*w) over a field.
+// K2 ez_ntt_stages replaces `_bfly_call` of ezkl_tpu/kernels/pntt.py (entry
+// `bfly`), which ran one radix-2 stage (a + b*w, a - b*w) per launch: it runs
+// r consecutive stages of a bit-reversed-input DIT transform in one launch.
 //
-// Bound on the H100: ez_mont_mul and ez_bfly are memory-bound streams at large
-// n. K1 moves 3 x 32 bytes per element against 264 32-bit multiply-adds (8x8
-// words for the product, 8x8 for the reduction, two IMADs per 64-bit
-// product), which the SMs retire faster than HBM delivers 96 bytes; K2 moves
-// 2 x 32 bytes per element (plus the stage's twiddle table, read through L2)
-// against one product per pair. Design: one thread per element (per pair for
-// K2), limbs in registers, limb-major loads that coalesce across a warp; K2
-// reads a stage's twiddle w[j mod half] from a table of `half` entries instead
-// of a broadcast array, and works on the whole (8, n) array in one launch per
-// stage, so a stage is one read and one write of the data.
+// Bound on the H100: ez_mont_mul is a memory-bound stream at large n: it
+// moves 3 x 32 bytes per element against 264 32-bit multiply-adds (8x8 words
+// for the product, 8x8 for the reduction, two IMADs per 64-bit product),
+// which the SMs retire faster than HBM delivers 96 bytes. Design: one thread
+// per element, limbs in registers, limb-major loads that coalesce across a
+// warp.
+//
+// A transform of 2^k points is k stages of one product per pair: as one
+// launch per stage it read and wrote the whole array k times, and at 2^14 a
+// stage was 8,192 threads and a ~2.7 us launch against a ~0.3 us byte bound.
+// ez_ntt_stages runs stages s0+1 .. s0+r (r <= 10) on every column of an
+// (8, cols, 2^k) array. The elements those stages connect -- a group, the
+// 2^r indices that agree on every bit outside [s0, s0 + r) -- are loaded once
+// into shared memory, the r stages run there with a block barrier between
+// them, and the group is stored once: a transform is ceil(k / 10) reads and
+// writes of the data (`pntt.pass_split`). A block holds gb groups, at most
+// 1024 elements (32 KB of static shared memory, word-major: word i of tile
+// element t at tile[i][t]). In the first pass (s0 = 0) a group is a
+// contiguous run; in a later one its elements lie 2^s0 apart, and the block
+// takes gb adjacent groups, so that a warp's loads of one word are gb
+// consecutive words. Stage s reads its twiddle w_{2^s}^j from the one master
+// table [w^0 .. w^(2^(k-1) - 1)] at j * 2^(k-s). Inside a launch the values
+// are lazy (< 2p: `mul_cc`, `add2p_cc`, `sub2p_cc`, the teams' carry-flag
+// arithmetic) and each is reduced once as it is stored; a stage's canonical
+// output is unique, so the words are those of one launch per stage.
 //
 // The chain forms run where the prover's chains are narrow: an inversion of 1
 // to 8 elements (308-309 dependent products) or a scan block of
@@ -57,6 +73,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChainThreads = 32;
+// elements of ez_ntt_stages' tile: 32 KB of shared memory; 2^10, the largest
+// group of stages one launch runs
+constexpr int kNttTile = 1024;
+constexpr int kNttMaxStages = 10;
 
 // ez_mont_pow's sliding window of 4 bits over a static exponent (the host's
 // `limbs.pow_schedule`): the table holds the odd powers x, x^3, ..., x^15;
@@ -82,24 +102,67 @@ __global__ void __launch_bounds__(kThreads)
   store(out, n, j, mul<F>(load(a, n, j), load(b, b_n, jb)));
 }
 
-// x: (8, n) with n a multiple of 2 * half; w: (8, half). Butterfly t pairs
-// positions i0 = (t / half) * 2 * half + t % half and i1 = i0 + half.
+// Stages s0+1 .. s0+r over x: (8, total) = (8, cols, 2^k), into out (which
+// may be x: a block reads and writes only its own tile). Group G (of
+// total / 2^r) holds the elements at ((G >> s0) << (s0 + r)) | (e << s0) |
+// (G mod 2^s0) for e < 2^r; block b holds groups b * gb .. b * gb + gb - 1,
+// gb = 2^log_gb. Tile position of (group gl of the block, element e):
+// gl * 2^r + e when s0 = 0 (the tile is one contiguous run), e * gb + gl
+// otherwise (adjacent groups side by side). tw: the master table (8, 2^(k-1)).
+// x canonical; the tile holds values < 2p; out canonical. Every thread takes
+// every barrier: no thread leaves early.
 template <class F>
 __global__ void __launch_bounds__(kThreads)
-    bfly_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ w,
-                uint32_t* __restrict__ out, long long n, int log_half) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (n >> 1)) return;
-  const long long half = 1LL << log_half;
-  const long long j = t & (half - 1);
-  const long long i0 = ((t >> log_half) << (log_half + 1)) + j;
-  const long long i1 = i0 + half;
-  Fe a = load(x, n, i0);
-  Fe b = load(x, n, i1);
-  Fe tw = load(w, half, j);
-  Fe bw = mul<F>(b, tw);
-  store(out, n, i0, add<F>(a, bw));
-  store(out, n, i1, sub<F>(a, bw));
+    ntt_stages_kernel(const uint32_t* x, const uint32_t* __restrict__ tw, uint32_t* out,
+                      long long total, int k, int s0, int r, int log_gb) {
+  __shared__ uint32_t tile[8][kNttTile];
+  const int tile_n = 1 << (r + log_gb), gb = 1 << log_gb;
+  const long long lo_mask = (1LL << s0) - 1;
+  const long long g0 = (long long)blockIdx.x << log_gb;
+  const long long tw_n = 1LL << (k - 1);
+  const auto pos = [&](int gl, int e) { return s0 == 0 ? (gl << r) | e : (e << log_gb) | gl; };
+  const auto flat = [&](int t) {
+    const int gl = s0 == 0 ? t >> r : t & (gb - 1);
+    const long long e = s0 == 0 ? t & ((1 << r) - 1) : t >> log_gb;
+    const long long G = g0 + gl;
+    return ((G >> s0) << (s0 + r)) | (e << s0) | (G & lo_mask);
+  };
+  for (int t = threadIdx.x; t < tile_n; t += blockDim.x) {
+    const long long j = flat(t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) tile[i][t] = x[i * total + j];
+  }
+  __syncthreads();
+  for (int st = 0; st < r; ++st) {
+    const int h = 1 << st, shift = k - (s0 + st + 1);
+    for (int q = threadIdx.x; q < tile_n / 2; q += blockDim.x) {
+      const int gl = s0 == 0 ? q >> (r - 1) : q & (gb - 1);
+      const int pe = s0 == 0 ? q & ((1 << (r - 1)) - 1) : q >> log_gb;
+      const int e0 = ((pe >> st) << (st + 1)) | (pe & (h - 1));
+      const long long j = ((long long)(pe & (h - 1)) << s0) | ((g0 + gl) & lo_mask);
+      const int t0 = pos(gl, e0), t1 = pos(gl, e0 + h);
+      Fe a, b;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        a.v[i] = tile[i][t0];
+        b.v[i] = tile[i][t1];
+      }
+      const Fe bw = mul_cc<F>(b, load(tw, tw_n, j << shift));
+      const Fe hi = add2p_cc<F>(a, bw), lo = sub2p_cc<F>(a, bw);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        tile[i][t0] = hi.v[i];
+        tile[i][t1] = lo.v[i];
+      }
+    }
+    __syncthreads();
+  }
+  for (int t = threadIdx.x; t < tile_n; t += blockDim.x) {
+    Fe a;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a.v[i] = tile[i][t];
+    store(out, total, flat(t), reduce_cc<F>(a));
+  }
 }
 
 // out = a^e elementwise over (8, n), e by its window schedule. The table
@@ -160,14 +223,24 @@ extern "C" int ez_mont_mul(int field, const uint32_t* a, const uint32_t* b, uint
   return (int)cudaGetLastError();
 }
 
-extern "C" int ez_bfly(int field, const uint32_t* x, const uint32_t* w, uint32_t* out,
-                       long long n, int log_half, void* stream) {
+// Stages s0+1 .. s0+r (1 <= r <= 10, s0 + r <= k) of the DIT transform over
+// each of `cols` columns of 2^k elements, gb = 2^log_gb groups per block
+// (gb * 2^r <= 1024; gb <= 2^s0 when s0 > 0; `pntt.groups_per_block`
+// chooses). out may be x.
+extern "C" int ez_ntt_stages(int field, const uint32_t* x, const uint32_t* tw, uint32_t* out,
+                             long long cols, int k, int s0, int r, int log_gb, void* stream) {
+  if (r < 1 || r > kNttMaxStages || s0 < 0 || s0 + r > k || log_gb < 0 ||
+      (1 << (r + log_gb)) > kNttTile || (s0 > 0 && log_gb > s0) || log_gb > k - r || cols < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long pairs = n >> 1;
+  const long long total = cols << k;
+  const unsigned blocks = (unsigned)(total >> (r + log_gb));
+  const int half_tile = 1 << (r + log_gb - 1);
+  const int threads = half_tile < kThreads ? half_tile : kThreads;
   if (field == 0)
-    bfly_kernel<Fr><<<blocks_for(pairs), kThreads, 0, s>>>(x, w, out, n, log_half);
+    ntt_stages_kernel<Fr><<<blocks, threads, 0, s>>>(x, tw, out, total, k, s0, r, log_gb);
   else
-    bfly_kernel<Fq><<<blocks_for(pairs), kThreads, 0, s>>>(x, w, out, n, log_half);
+    ntt_stages_kernel<Fq><<<blocks, threads, 0, s>>>(x, tw, out, total, k, s0, r, log_gb);
   return (int)cudaGetLastError();
 }
 

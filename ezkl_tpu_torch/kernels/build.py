@@ -10,8 +10,9 @@ Nothing here falls back: a missing `nvcc` or a failed build raises.
 `LAUNCHES` counts the kernel launches of each wrapper: a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels. `WIDTHS` keeps, beside it, the width and
-the Montgomery products of each K1 (`mont_mul`, `mont_pow`, `mont_scan`) and
-K2 launch, so a run can also show how wide they were.
+the Montgomery products of each K1 (`mont_mul`, `mont_pow`, `mont_scan`), K2
+(`ntt_stages`) and K3 (`point_add`, `point_reduce`) launch, so a run can also
+show how wide they were.
 """
 
 from __future__ import annotations
@@ -29,14 +30,15 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "e
 LIB_NAME = "libbn254.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "mont_scan": 0, "bfly": 0, "point_add": 0,
-            "point_dbl": 0, "scan_packed": 0, "scan_steps": 0, "fold_lanes": 0, "dbl_pow2": 0,
-            "horner": 0}
+LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "mont_scan": 0, "ntt_stages": 0, "point_add": 0,
+            "point_reduce": 0, "point_dbl": 0, "scan_packed": 0, "scan_steps": 0,
+            "fold_lanes": 0, "dbl_pow2": 0, "horner": 0}
 
 # (kernel, field, elements, products) of every K1 (`mont_mul`, `mont_pow`,
-# `mont_scan`) and K2 (`bfly`) launch since the last `reset_launches`, in
-# launch order; bounded (a k = 14 prove made about 6,000 of them when every
-# product of a chain was a `mont_mul` launch).
+# `mont_scan`), K2 (`ntt_stages`) and K3 (`point_add`, `point_reduce`; field
+# bn254_fq, elements = lanes in, products = 12 per add) launch since the last
+# `reset_launches`, in launch order; bounded (a k = 14 prove made about 6,000
+# of them when every product of a chain was a `mont_mul` launch).
 WIDTHS: collections.deque = collections.deque(maxlen=1 << 16)
 
 _LIB = None
@@ -46,8 +48,9 @@ _SIGNATURES = {
     "ez_mont_mul": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _VP],
     "ez_mont_pow": [_I, _VP, _VP, _LL, _VP, _VP, _I, _I, _I, _VP],
     "ez_mont_scan": [_I, _VP, _VP, _LL, _I, _VP],
-    "ez_bfly": [_I, _VP, _VP, _VP, _LL, _I, _VP],
-    "ez_point_add": [_VP] * 9 + [_LL, _VP],
+    "ez_ntt_stages": [_I, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _VP],
+    "ez_point_add": [_VP] * 9 + [_LL, _I, _VP],
+    "ez_point_reduce": [_VP] * 6 + [_LL, _I, _VP],
     "ez_point_dbl": [_VP] * 6 + [_LL, _VP],
     "ez_scan_packed": [_VP] * 6 + [_LL, _I, _I, _VP],
     "ez_scan_steps": [_I] + [_VP] * 6 + [_LL, _I, _I, _VP],

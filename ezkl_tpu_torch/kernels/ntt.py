@@ -1,10 +1,13 @@
 """Radix-2 NTT / coset NTT over BN254 Fr (port of `ezkl_tpu/kernels/ntt.py`).
 
 Data layout `(8, *batch, n)` Montgomery limbs; one bit-reversal gather, then
-log2(n) butterfly stages, each one launch of K2 (`pntt.bfly`) over the whole
-array. The JAX package's four-step branch (`ntt.py:163-172`) was a TPU layout
-choice and is not ported. Twiddle tables are host bigints, moved to the
-device once per (field, size, direction, device).
+the log2(n) butterfly stages in `pntt.pass_split(log2 n)` passes of up to 10
+stages, each pass one launch of K2 (`pntt.stages`) over the whole array, on
+either device. The JAX package's four-step branch (`ntt.py:163-172`) was a
+TPU layout choice and is not ported. The one twiddle table of a size and
+direction, [w^0 .. w^(n/2 - 1)], is host bigints, moved to the device once
+per (field, size, direction, device); every stage reads its twiddles from
+it.
 """
 
 from __future__ import annotations
@@ -46,13 +49,10 @@ def dev_cached(key, make) -> torch.Tensor:
     return hit
 
 
-def _stage_twiddles(spec: FieldSpec, k: int, inverse: bool, device) -> list:
-    """Per-stage twiddle tables w_m^j (j < m/2) for m = 2, 4, .., 2^k."""
-    def make():
-        tw = limbs.to_device(_twiddles_host(spec, k, inverse), device)
-        n = 1 << k
-        return [tw[:, :: n // (1 << s)].contiguous() for s in range(1, k + 1)]
-    return dev_cached(("tw", spec, k, inverse, str(device)), make)
+def twiddles(spec: FieldSpec, k: int, inverse: bool, device) -> torch.Tensor:
+    """The master table [w^0 .. w^(2^(k-1) - 1)] on `device`, (8, 2^(k-1))."""
+    return dev_cached(("tw", spec, k, inverse, str(device)),
+                      lambda: limbs.to_device(_twiddles_host(spec, k, inverse), device))
 
 
 @functools.lru_cache(maxsize=64)
@@ -79,8 +79,9 @@ def ntt(spec: FieldSpec, coeffs: torch.Tensor, inverse: bool = False) -> torch.T
     if n == 1:
         return coeffs
     x = coeffs[..., _bitrev(k, coeffs.device)]
-    for w in _stage_twiddles(spec, k, inverse, coeffs.device):
-        x = pntt.bfly(spec, x, w)
+    tw = twiddles(spec, k, inverse, coeffs.device)
+    for s0, r in pntt.pass_split(k):
+        x = pntt.stages(spec, x, tw, k, s0, r)
     if inverse:
         ninv = limbs.const(spec, pow(n, -1, spec.modulus), device=x.device)
         x = limbs.mont_mul(spec, x, ninv.reshape((-1,) + (1,) * (x.dim() - 1)))

@@ -3,7 +3,8 @@ fused MSM's step-loop kernels K4-K8.
 
 K3 and K9 replace the TPU kernels `_add_call` and `_dbl_call` of
 `ezkl_tpu/kernels/pcurve.py` (entries `add` :722 and `dbl` :741); their CUDA
-kernels are in `csrc/curve.cu`. K4 `prefix_scan_packed`, K5
+kernels are in `csrc/curve.cu`, with K3 also in a tree form: the halving
+tree of `reduce_pairwise` in one launch. K4 `prefix_scan_packed`, K5
 `prefix_scan_steps`, K6 `fold_lanes`, K7 `dbl_pow2` and K8 `horner_combine`
 replace `_scan_call_packed`, `_scan_call`, `_fold_call`, `_dbln_call` and
 `_horner_call` (entries :389, :414, :499, :694, :628); their CUDA kernels are
@@ -131,19 +132,41 @@ def point_dbl_plain(p: PointP) -> PointP:
     return PointP(*(limbs._i32(c).reshape(bs) for c in out))
 
 
-def _launch(name: str, fn: str, coords):
+def _launch(name: str, fn: str, coords, post=()):
     """K3 or K9 on coordinates of any (equal) batch shape, flattened."""
     bs = coords[0].shape
     flat = tuple(c.reshape(NWORDS, -1).contiguous() for c in coords)
     n = flat[0].shape[1]
-    return _kernel(name, fn, flat, (n,), post=(n,)).map(lambda o: o.reshape(bs))
+    return _kernel(name, fn, flat, (n,), post=(n, *post)).map(lambda o: o.reshape(bs))
+
+
+# K3's single add runs a team of 8 threads per lane where few lanes leave the
+# card idle and of 2 where many fill it (`csrc/curve.cu`). The limit is from
+# the H100 sweep at the widths the k = 14 prove launches it, 26 to 106,496
+# lanes, in `chip_smoke.py`: 8 wins up to 3,328 lanes, 2 from 13,312 up, and
+# one thread per lane at none (PERF.md, K3's row).
+ADD_TEAMS = (2, 8)
+ADD_TEAM8_LANES = 4096
+
+
+def point_add_team(n: int) -> int:
+    """Threads per lane of K3's single add for n lanes."""
+    return 8 if n <= ADD_TEAM8_LANES else 2
+
+
+def _add_launch(coords, team: int) -> PointP:
+    n = coords[0].reshape(NWORDS, -1).shape[1]
+    out = _launch("point_add", "ez_point_add", coords, post=(team,))
+    if n:
+        build.WIDTHS.append(("point_add", FQ.name, n, 12 * n))
+    return out
 
 
 def point_add(p: PointP, q: PointP) -> PointP:
     """Complete projective add, batch shapes equal (K3)."""
     assert p.x.shape == q.x.shape, f"batch mismatch {p.x.shape} vs {q.x.shape}"
     if p.x.is_cuda:
-        return _launch("point_add", "ez_point_add", (*p, *q))
+        return _add_launch((*p, *q), point_add_team(p.x[0].numel()))
     return point_add_plain(p, q)
 
 
@@ -374,16 +397,49 @@ def fold_lanes(p, blk: int = 1024) -> PointP:
     return out if grouped else out.map(lambda a: a[:, 0])
 
 
-def reduce_pairwise(p: PointP) -> PointP:
-    """(8, ..., w) partials -> (8, ...) total by log2(w) halving complete
-    adds (K3; identity lanes allowed)."""
-    from ..fieldmath import curve
+@torch.inference_mode()
+def reduce_pairwise_plain(p: PointP) -> PointP:
+    """Plain PyTorch version of K3's tree form: the halving loop of
+    `point_add_plain`."""
     w = p.x.shape[-1]
     while w > 1:
         half = w // 2
-        p = curve.add(p.map(lambda t: t[..., :half]), p.map(lambda t: t[..., half:w]))
+        p = point_add_plain(p.map(lambda t: t[..., :half]), p.map(lambda t: t[..., half:w]))
         w = half
     return p.map(lambda t: t[..., 0])
+
+
+# partials per group that `ez_point_reduce` holds in shared memory
+TREE_MAX = 256
+
+
+def _reduce_kernel(p: PointP) -> PointP:
+    """K3's tree form on (8, ..., w), 2 <= w <= TREE_MAX."""
+    bs, w = p.x.shape[1:-1], p.x.shape[-1]
+    flat = tuple(c.reshape(NWORDS, -1, w).contiguous() for c in p)
+    groups = flat[0].shape[1]
+    out = _kernel("point_reduce", "ez_point_reduce", flat, (groups,), post=(groups, w))
+    if groups:
+        build.WIDTHS.append(("point_reduce", FQ.name, groups * w, 12 * groups * (w - 1)))
+    return out.map(lambda o: o.reshape((NWORDS,) + tuple(bs)))
+
+
+def reduce_pairwise(p: PointP) -> PointP:
+    """(8, ..., w) partials -> (8, ...) total by log2(w) halving complete
+    adds, lane j plus lane j + w/2 (K3; identity lanes allowed). On the card
+    the tree is one launch (`ez_point_reduce`), after one K3 launch per
+    level above TREE_MAX partials."""
+    if not p.x.is_cuda:
+        return reduce_pairwise_plain(p)
+    w = p.x.shape[-1]
+    assert w & (w - 1) == 0, f"reduce_pairwise: w={w} is no power of two"
+    while w > TREE_MAX:
+        half = w // 2
+        p = point_add(p.map(lambda t: t[..., :half]), p.map(lambda t: t[..., half:]))
+        w = half
+    if w == 1:
+        return p.map(lambda t: t[..., 0])
+    return _reduce_kernel(p)
 
 
 def fold_all(p, blk: int = 1024) -> PointP:

@@ -86,3 +86,57 @@ def test_encode_decode_and_neg():
     assert curve.decode_points(curve.neg(enc)) == [ref_host.g1_neg(pt) for pt in pts]
     ident = curve.identity((2,), "cpu")
     assert bool(curve.is_identity(ident).all())
+
+
+_REF_ADD = None
+
+
+@pytest.fixture(scope="module")
+def base_points():
+    rng = np.random.default_rng(23)
+    return [ref_host.g1_mul(ref_host.G1, int(k)) for k in rng.integers(1, 1 << 60, size=7)]
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("w", [1, 2, 128])
+def test_reduce_pairwise_word_equal_vs_reference(monkeypatch, base_points, w, groups):
+    """K3's tree form (`pcurve.reduce_pairwise`, here its plain version, the
+    loop of `point_add_plain`) against the JAX package's
+    `ezkl_tpu.kernels.pcurve.reduce_pairwise` on (8, groups, w) partials
+    with identity lanes (a whole group of them when there are three).
+    That function adds through the TPU kernel `_add_call`, which needs a
+    TPU; as the JAX package's non-TPU paths do, its adds run in this test through
+    `ezkl_tpu.fieldmath.curve.add`, the same RCB15 schedule in XLA, whose
+    words the TPU kernel matches -- one compiled add for every case, each
+    level's (groups, lanes) zero-padded to (3, 64) (an add is lane by lane;
+    the padding lanes are dropped). Tolerance: equal projective words."""
+    import jax
+    from ezkl_tpu.kernels import pcurve as ref_pcurve
+    from ezkl_tpu_torch.kernels import pcurve
+    global _REF_ADD
+    if _REF_ADD is None:
+        _REF_ADD = jax.jit(ref_curve.add)
+
+    def padded_add(p, q):
+        g, half = p.x.shape[1:]
+        pad = lambda t: jnp.pad(t, [(0, 0), (0, 3 - g), (0, 64 - half)])  # noqa: E731
+        out = _REF_ADD(ref_curve.PointP(*map(pad, p)), ref_curve.PointP(*map(pad, q)))
+        return ref_curve.PointP(*(c[:, :g, :half] for c in out))
+
+    monkeypatch.setattr(ref_pcurve, "add", padded_add)
+    rng = np.random.default_rng(w + groups)
+    pts = [None if rng.random() < 0.1 else base_points[int(rng.integers(0, 7))]
+           for _ in range(groups * w)]
+    pts[0] = None
+    if groups == 3:
+        pts[w:2 * w] = [None] * w
+    ref = _projective(pts, rng)
+    ref = ref_curve.PointP(*(c.reshape((16, groups, w)) for c in ref))
+    got = pcurve.reduce_pairwise(_port(ref))
+    want = ref_pcurve.reduce_pairwise(ref)
+    _same(got, want)
+    sums = [None] * groups
+    for g in range(groups):
+        for pt in pts[g * w:(g + 1) * w]:
+            sums[g] = ref_host.g1_add(sums[g], pt)
+    assert curve.decode_points(got) == sums

@@ -4,13 +4,17 @@
   `tools/profile_torch_prove.py`, `tools/bench_msm_kernels.py`) import
   `jax` or the JAX package `ezkl_tpu` (checked on the source with `ast`);
 * every kernel wrapper (K1 mont_mul and its chain forms mont_pow and
-  mont_scan, K2 bfly, K3 point_add, K9 point_dbl, and the fused MSM's K4
+  mont_scan, K2 ntt_stages and its one-stage entry bfly, K3 point_add at
+  each team size and its tree form point_reduce, K9 point_dbl, and the
+  fused MSM's K4
   scan_packed, K5 scan_steps and K6 fold_lanes in both variants, K7
   dbl_pow2, K8 horner) raises when its kernel cannot be built, instead of
   falling back to the plain version; and a tensor on the card always takes
   the kernel route;
 * on the card a Fermat inversion is one launch and a batch inversion runs
-  its scan blocks as single launches, not one per product.
+  its scan blocks as single launches, not one per product; a transform is
+  one K2 launch per pass, not per stage; the halving tree of
+  `reduce_pairwise` is one launch; K3's single add picks its team by width.
 
 No card is needed: the build is mocked, or replaced by a library that
 records its calls.
@@ -25,7 +29,7 @@ import torch
 
 from ezkl_tpu_torch.fieldmath import curve, limbs
 from ezkl_tpu_torch.fieldmath.spec import bn254_fr
-from ezkl_tpu_torch.kernels import build, msm, pcurve, pntt
+from ezkl_tpu_torch.kernels import build, msm, ntt, pcurve, pntt
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "ezkl_tpu")
@@ -89,8 +93,11 @@ KERNEL_CALLS = {
     "mont_mul": lambda: limbs._mont_mul_kernel(FR, _field(), _field()),
     "mont_pow": lambda: limbs._mont_pow_kernel(FR, _field(), FR.modulus - 2),
     "mont_scan": lambda: limbs._mont_scan_kernel(FR, _field(32)),
-    "bfly": lambda: pntt._bfly_kernel(FR, _field(), _field(1)),
-    "point_add": lambda: pcurve._launch("point_add", "ez_point_add", (*_points(), *_points())),
+    "bfly": lambda: pntt._stages_kernel(FR, _field(), _field(1), 1, 0, 1),
+    "ntt_stages": lambda: pntt._stages_kernel(FR, _field(16), _field(8), 4, 1, 3),
+    "point_add": lambda: pcurve._add_launch((*_points(), *_points()), 2),
+    "point_add_team8": lambda: pcurve._add_launch((*_points(), *_points()), 8),
+    "point_reduce": lambda: pcurve._reduce_kernel(_grid(3, 8)),
     "point_dbl": lambda: pcurve._launch("point_dbl", "ez_point_dbl", tuple(_points())),
     "scan_packed": lambda: pcurve._scan_packed_kernel(_grid(2, 4).x, _grid(2, 4).y, _signs(2, 4)),
     "scan_steps_complete": lambda: pcurve._scan_steps_kernel(_grid(2, 4)),
@@ -106,7 +113,9 @@ PUBLIC_CALLS = {
     "mont_pow": lambda: limbs.inv(FR, _field()),
     "mont_scan": lambda: limbs.prefix_scan_mul(FR, _field(40)),
     "bfly": lambda: pntt.bfly(FR, _field(), _field(1)),
+    "ntt": lambda: ntt.ntt(FR, _field(16)),
     "point_add": lambda: curve.add(_points(), _points()),
+    "reduce_pairwise": lambda: pcurve.reduce_pairwise(_grid(3, 8)),
     "point_dbl": lambda: curve.dbl(_points()),
     "scan_packed": lambda: pcurve.prefix_scan_packed(_grid(4, 2).x, _grid(4, 2).y, _signs(4, 2)),
     "scan_steps_complete": lambda: pcurve.prefix_scan_steps(_grid(4, 2)),
@@ -156,10 +165,12 @@ class _RecordingLib:
 
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def __getattr__(self, name):
         def entry(*args):
             self.calls.append(name)
+            self.args.append(args)
             return 0
         return entry
 
@@ -222,7 +233,7 @@ def test_cuh_constants_match_the_field_specs():
 
 
 def test_width_histogram_counts_launches_per_field_and_power_of_two():
-    """`build.width_histogram`: K1/K2 launches by kernel, field and the least
+    """`build.width_histogram`: K1-K3 launches by kernel, field and the least
     power of two >= the launch's element count."""
     widths = [("mont_mul", "bn254_fr", 16384), ("mont_mul", "bn254_fr", 16377),
               ("mont_mul", "bn254_fq", 1), ("bfly", "bn254_fr", 131072),
@@ -231,3 +242,51 @@ def test_width_histogram_counts_launches_per_field_and_power_of_two():
         "bfly/bn254_fr": {"2^17": 1},
         "mont_mul/bn254_fq": {"2^0": 1},
         "mont_mul/bn254_fr": {"2^2": 1, "2^14": 2}}
+
+
+@pytest.mark.parametrize("k", [1, 10, 11, 14, 17])
+def test_ntt_on_the_card_is_one_launch_per_pass(card, k):
+    """A transform of 2^k points over a batch is one `ez_ntt_stages` launch
+    per pass of `pass_split(k)` (k = 14: 2, where one launch per stage took
+    14), each with the pass's (s0, r), groups per block and 2^k columns."""
+    x = limbs.zeros((2, 1 << k), "cpu")
+    ntt.ntt(FR, x)
+    split = pntt.pass_split(k)
+    assert card.calls == ["ez_ntt_stages"] * len(split)
+    assert build.LAUNCHES["ntt_stages"] == len(split) == -(-k // 10)
+    for args, (s0, r) in zip(card.args, split):
+        assert args[4:9] == (2, k, s0, r, pntt.groups_per_block(2, k, s0, r))
+    assert [w[:3] for w in build.WIDTHS] == [("ntt_stages", "bn254_fr", 2 << k)] * len(split)
+
+
+def test_bfly_on_the_card_is_one_single_stage_pass(card):
+    """`pntt.bfly` with a stage table of `half` entries is one pass of r = 1:
+    stage log2(half) + 1 of a transform of 2 * half points over the blocks."""
+    pntt.bfly(FR, _field(16), _field(4))
+    assert card.calls == ["ez_ntt_stages"]
+    assert card.args[0][4:8] == (2, 3, 2, 1)        # 2 blocks of 8, stage 3
+
+
+@pytest.mark.parametrize("w, want", [(2, ["ez_point_reduce"]), (128, ["ez_point_reduce"]),
+                                     (256, ["ez_point_reduce"]),
+                                     (1024, ["ez_point_add", "ez_point_add",
+                                             "ez_point_reduce"])])
+def test_reduce_pairwise_on_the_card_is_one_tree_launch(card, w, want):
+    """The halving tree of `reduce_pairwise` over (8, 3, w) partials is one
+    `ez_point_reduce` launch up to 256 partials, after one halving add per
+    level above; where each level was a K3 launch (7 at w = 128)."""
+    pcurve.reduce_pairwise(_grid(3, w))
+    assert card.calls == want
+    assert card.args[-1][-3:-1] == (3, min(w, pcurve.TREE_MAX))
+    assert build.LAUNCHES["point_reduce"] == 1
+
+
+@pytest.mark.parametrize("n, team", [(26, 8), (4096, 8), (4097, 2), (106496, 2)])
+def test_point_add_team_by_lanes(card, n, team):
+    """K3's single add runs a team of 8 threads per lane up to 4,096 lanes
+    and of 2 above, the sides of the H100 sweep (PERF.md)."""
+    assert pcurve.point_add_team(n) == team
+    p = curve.identity((n,), "cpu")
+    curve.add(p, p)
+    assert card.calls == ["ez_point_add"]
+    assert card.args[0][-3:-1] == (n, team)

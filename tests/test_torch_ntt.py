@@ -106,3 +106,113 @@ def test_kzg_evaluations_match_host():
     wit = kzg.open_witness_evals(evals, limbs.const(FR, pz, device="cpu"), z, k)
     want = [(v - pz) * pow(pow(w, i, P) - z, -1, P) % P for i, v in enumerate(vals)]
     assert [int(v) for v in limbs.decode(FR, wit)] == want
+
+
+# --- K2's passes: several stages per launch -------------------------------
+
+@pytest.mark.parametrize("k", range(1, 22))
+def test_pass_split_covers_every_stage_once(k):
+    """`pntt.pass_split(k)`: contiguous passes over stages 1 .. k, each of
+    at most 10 stages, ceil(k / 10) of them, lengths within one."""
+    split = pntt.pass_split(k)
+    assert [s0 for s0, _ in split] == [sum(r for _, r in split[:i]) for i in range(len(split))]
+    assert sum(r for _, r in split) == k
+    assert len(split) == -(-k // 10)
+    rs = [r for _, r in split]
+    assert max(rs) <= pntt.MAX_STAGES and max(rs) - min(rs) <= 1
+
+
+@pytest.mark.parametrize("cols", [1, 3, 16])
+def test_groups_per_block_within_the_kernels_limits(cols):
+    """Every pass's choice fits `ez_ntt_stages`: a tile of <= 1024 elements,
+    no more groups than one stride run (2^s0) past the first pass, and whole
+    blocks over the groups."""
+    for k in range(1, 22):
+        for s0, r in pntt.pass_split(k) + [(s0, 1) for s0 in range(k)]:
+            log_gb = pntt.groups_per_block(cols, k, s0, r)
+            assert 0 <= log_gb <= pntt.max_log_groups(k, s0, r)
+            gb = 1 << log_gb
+            assert gb << r <= pntt.TILE
+            assert s0 == 0 or gb <= 1 << s0
+            assert (cols << (k - r)) % gb == 0
+
+
+@pytest.mark.parametrize("k, s0, r", [(1, 0, 1), (4, 0, 4), (6, 2, 3), (11, 6, 5), (12, 0, 6),
+                                      (12, 6, 6), (12, 2, 10)])
+def test_stages_plain_is_r_single_stages(k, s0, r):
+    """`stages_plain(k, s0, r)` equals r one-stage `bfly_plain` calls, stage
+    s with the table w_{2^s}^j = master[j * 2^(k-s)] cut from the master
+    table as the JAX package cuts it (`ezkl_tpu/kernels/ntt.py:188-197`)."""
+    n = 1 << k
+    rng = np.random.default_rng(100 + k)
+    x = limbs.to_device(limbs.encode(FR, [int(v) for v in rng.integers(0, 1 << 62, size=2 * n)]),
+                        "cpu").reshape(8, 2, n)
+    for inverse in (False, True):
+        master = ntt.twiddles(FR, k, inverse, "cpu")
+        want = x
+        for s in range(s0 + 1, s0 + r + 1):
+            want = pntt.bfly_plain(FR, want, master[:, :: n // (1 << s)].contiguous())
+        assert pntt.stages_plain(FR, x, master, k, s0, r).equal(want)
+
+
+def _host_transform(cols, which):
+    """`ntt`, `intt` or `coset_ntt` of host int columns by the radix-2 DIT
+    on Python ints, with the JAX package's roots of unity and coset
+    generator: the reference oracle where its O(n^2) `host_ntt` and its
+    compiled `ntt_jit` (20-35 s to compile per shape at k = 11, 12 on an
+    8-core x86 CPU) are too slow."""
+    fr = ref_fr()
+    out = []
+    for vals in cols:
+        n = len(vals)
+        k = n.bit_length() - 1
+        inverse = which == "intt"
+        if which == "coset_ntt":
+            vals = _coset(vals)
+        x = [vals[int(j)] for j in ntt._bitrev_perm(k)] if k else list(vals)
+        w = ref_ntt.root_of_unity(fr, k, inverse) if k else 1
+        for s in range(1, k + 1):
+            m = 1 << s
+            wm = pow(w, n // m, P)
+            for blk in range(0, n, m):
+                t = 1
+                for j in range(m // 2):
+                    a, b = x[blk + j], x[blk + j + m // 2] * t % P
+                    x[blk + j], x[blk + j + m // 2] = (a + b) % P, (a - b) % P
+                    t = t * wm % P
+        if inverse:
+            ninv = pow(n, -1, P)
+            x = [v * ninv % P for v in x]
+        out.append(x)
+    return out
+
+
+TRANSFORMS = {"ntt": ntt.ntt, "intt": ntt.intt, "coset_ntt": ntt.coset_ntt}
+
+
+@pytest.mark.parametrize("batch", [(), (2, 3)], ids=["single", "batch2x3"])
+@pytest.mark.parametrize("k", [1, 5, 11, 12])
+@pytest.mark.parametrize("which", sorted(TRANSFORMS))
+def test_transform_through_the_pass_split_bit_exact(which, k, batch):
+    """`ntt`, `intt` and `coset_ntt` run their stages in `pass_split(k)`
+    passes (k = 11: 6 + 5, k = 12: 6 + 6) on either device; here the plain
+    passes, bit-exact against the reference: its compiled `ntt_jit`,
+    `intt_jit` and `coset_ntt_jit` at k = 1, its `ntt_jit` at k = 5 over the
+    batch, and everywhere the radix-2 host oracle above."""
+    n = 1 << k
+    rng = np.random.default_rng(7 * k + len(batch))
+    vals = rng.integers(0, 1 << 62, size=batch + (n,)).astype(object)
+    edge = [0, 1, P - 1][:vals.size]
+    vals.reshape(-1)[:len(edge)] = edge
+    x_ref = ref_limbs.encode(ref_fr(), vals.reshape(-1).tolist()).reshape((16,) + batch + (n,))
+    got = TRANSFORMS[which](FR, convert.limbs_from_ref(x_ref, "cpu"))
+    cols = vals.reshape(-1, n).tolist()
+    host = np.array(_host_transform(cols, which), dtype=object).reshape(batch + (n,))
+    dec = np.array([int(v) for v in limbs.decode(FR, got.reshape(8, -1))],
+                   dtype=object).reshape(batch + (n,))
+    assert (dec == host).all()
+    if k == 1 or (k == 5 and batch and which == "ntt"):
+        jit = {"ntt": ref_ntt.ntt_jit, "intt": ref_ntt.intt_jit,
+               "coset_ntt": ref_ntt.coset_ntt_jit}[which]
+        want = jit(ref_fr(), jnp.asarray(x_ref))
+        np.testing.assert_array_equal(convert.limbs_to_ref(got), np.asarray(want))

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""The fused MSM's kernels K4-K8 alone on the card, and what they compile to.
+"""The port's point and NTT kernels alone on the card, and what they compile to.
 
-    python3 tools/bench_msm_kernels.py [--sass]
+    python3 tools/bench_msm_kernels.py [--only msm ntt adds] [--sass]
 
-Builds the kernels (printing ptxas' registers and spills), then runs
-`chip_smoke.check_msm_kernels`: K4-K8 against their plain versions at the
-k = 14 main path's shapes, bit-exact, with K4 and K5 at every team size, one
-JSON `kernel` line each with device times and bounds. With `--sass`, prints for
-each kernel of `msm.cu` its SASS instruction count by opcode (cuobjdump), so
-the instruction mix of a design can be read beside its time. Needs one CUDA
-card; prints the card's name and power limit first.
+Builds the kernels (printing ptxas' registers and spills), then runs the
+checks of `chip_smoke.py` named by `--only` (default `msm`): `msm`,
+`check_msm_kernels` (K4-K8 at the k = 14 main path's shapes, K4 and K5 at
+every team size); `ntt`, `check_ntt_stages` (K2: every pass of k = 1 .. 17,
+each whole transform of the prove and a sweep of its groups per block);
+`adds`, `check_point_adds` (K3's tree and its single add at every team
+size and width the prove launches). Each is bit-exact against its plain
+version, one JSON `kernel` line per case with device times and bounds. With
+`--sass`, prints for each kernel of `msm.cu`, `field.cu` and `curve.cu` its
+SASS instruction count by opcode (cuobjdump), so the instruction mix of a
+design can be read beside its time. Needs one CUDA card; prints the card's
+name and power limit first.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ def sass_histogram(obj: pathlib.Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sass", action="store_true", help="print the SASS opcode counts")
+    ap.add_argument("--only", nargs="+", choices=("msm", "ntt", "adds"), default=["msm"],
+                    help="which kernels to check and time")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -62,9 +69,15 @@ def main() -> int:
     build.build(verbose=True)
     build.lib()
     if args.sass:
-        for kernel, ops in sass_histogram(build.BUILD_DIR / "msm.o").items():
-            chip_smoke.emit({"sass": kernel, "instructions": sum(ops.values()), "opcodes": ops})
-    chip_smoke.check_msm_kernels(torch.device("cuda", 0), np.random.default_rng(chip_smoke.SEED))
+        for obj in ("msm.o", "field.o", "curve.o"):
+            for kernel, ops in sass_histogram(build.BUILD_DIR / obj).items():
+                chip_smoke.emit({"sass": kernel, "instructions": sum(ops.values()),
+                                 "opcodes": ops})
+    checks = {"msm": chip_smoke.check_msm_kernels, "ntt": chip_smoke.check_ntt_stages,
+              "adds": chip_smoke.check_point_adds}
+    dev, rng = torch.device("cuda", 0), np.random.default_rng(chip_smoke.SEED)
+    for name in args.only:
+        checks[name](dev, rng)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 

@@ -1,9 +1,16 @@
 // CPU emulation of the few CUDA pieces the port's kernels use: one std::thread
-// per CUDA thread, blocks one after another, __syncwarp as a block barrier.
+// per CUDA thread, blocks one after another; __syncthreads a barrier of the
+// block, __syncwarp(mask) a barrier of the threads of the caller's warp that
+// `mask` names (the kernels call it with a team's mask only).
 #pragma once
 #include <barrier>
+#include <bit>
 #include <cstdint>
+#include <map>
+#include <memory>
+#include <mutex>
 #include <thread>
+#include <utility>
 #include <vector>
 #define __device__
 #define __global__
@@ -20,7 +27,18 @@ typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline std::barrier<>* g_bar;
-inline void __syncwarp(unsigned = 0xffffffffu) { g_bar->arrive_and_wait(); }
+inline std::mutex g_warp_mu;
+inline std::map<std::pair<unsigned, unsigned>, std::unique_ptr<std::barrier<>>> g_warp_bars;
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lock(g_warp_mu);
+    auto& slot = g_warp_bars[{threadIdx.x / 32, mask}];
+    if (!slot) slot = std::make_unique<std::barrier<>>(std::popcount(mask));
+    b = slot.get();
+  }
+  b->arrive_and_wait();
+}
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 template <class K>
 void emu_launch(unsigned grid, unsigned block, K body) {
@@ -29,6 +47,7 @@ void emu_launch(unsigned grid, unsigned block, K body) {
   for (unsigned b = 0; b < grid; ++b) {
     std::barrier<> bar(block);
     g_bar = &bar;
+    g_warp_bars.clear();
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < block; ++t)
       ts.emplace_back([&, b, t] {

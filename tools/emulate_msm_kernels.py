@@ -5,15 +5,20 @@
 
 Compiles `ezkl_tpu_torch/csrc/*.cu` with g++ against `tools/cuda_emu/`, a
 stand-in for the few CUDA pieces the kernels use (one std::thread per CUDA
-thread, the blocks one after another, `__syncwarp` a barrier of the block),
+thread, the blocks one after another, `__syncthreads` a barrier of the block,
+`__syncwarp(mask)` one of the threads of the warp that `mask` names),
 with each `kernel<<<grid, block, smem, stream>>>(args)` rewritten into a call
 of its emulated launch; the PTX carry helpers of `bn254.cuh` take their C
 branch. Then holds K1's chain forms (`ez_mont_pow` in both fields with
-zeros in the batch, `ez_mont_scan` over one and several rows), K4 (at each
-team size, with pad pairs and a ragged last block), K5 (both variants at
-each team size, with identities and a ragged last block) and K8 (edge
-shapes, identities only) on CPU tensors at tiny shapes against their plain
-versions, bit-exact. It checks
+zeros in the batch, `ez_mont_scan` over one and several rows), K2
+(`ez_ntt_stages`: every pass (s0, r) of every k <= 12, forward and inverse,
+over two columns, each at a seeded choice of groups per block), K3 (the
+single add at each team size over a ragged lane count, and the tree
+`ez_point_reduce` at w = 128 over 3 groups and at w = 2, with identity
+lanes), K4 (at each team size, with pad pairs and a ragged last block), K5
+(both variants at each team size, with identities and a ragged last block)
+and K8 (edge shapes, identities only) on CPU tensors at tiny shapes against
+their plain versions, bit-exact. It checks
 the kernels' logic (indices, teams, barriers, carries) and times nothing;
 what only the card can show -- that nvcc accepts the source, the PTX, the
 speed -- still needs `chip_smoke.py` there. With `--prove` it then keys and
@@ -41,7 +46,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from ezkl_tpu_torch.fieldmath import curve, limbs  # noqa: E402
 from ezkl_tpu_torch.fieldmath.spec import bn254_fq, bn254_fr  # noqa: E402
-from ezkl_tpu_torch.kernels import build, pcurve  # noqa: E402
+from ezkl_tpu_torch.kernels import build, ntt, pcurve, pntt  # noqa: E402
 
 OUT = ROOT / "build" / "emu"
 
@@ -163,6 +168,45 @@ def main() -> int:
         if err:
             failed.append(name)
 
+    fr = bn254_fr()
+    for k in range(1, 13):
+        errs = 0
+        for inverse in (False, True):
+            tw = ntt.twiddles(fr, k, inverse, dev)
+            x = limbs.to_device(limbs.encode(fr, [
+                int.from_bytes(rng.bytes(32), "little") % fr.modulus for _ in range(2 << k)]),
+                dev).reshape(8, 2, 1 << k)
+            for s0 in range(k):
+                want = x
+                for r in range(1, min(pntt.MAX_STAGES, k - s0) + 1):
+                    want = pntt.bfly_plain(fr, want, pntt.stage_twiddles(tw, k, s0 + r))
+                    cap = pntt.max_log_groups(k, s0, r)
+                    out = torch.empty_like(x)
+                    rc = lib.ez_ntt_stages(0, x.data_ptr(), tw.data_ptr(), out.data_ptr(), 2, k,
+                                           s0, r, int(rng.integers(0, cap + 1)), None)
+                    if rc:
+                        raise RuntimeError(f"ez_ntt_stages returned {rc}")
+                    errs = max(errs, cs.max_abs_err([out], [want]))
+        name = f"ntt_stages k={k} every (s0, r), forward and inverse, 2 columns"
+        print(name, "max_abs_err", errs, flush=True)
+        if errs:
+            failed.append(name)
+    mask = torch.zeros(37, dtype=torch.bool)
+    mask[0] = mask[5] = True
+    A = cs._set(cs._gather(P, idx(37)), mask, ident)
+    mask[0], mask[6] = False, True
+    B = cs._set(cs._gather(P, idx(37)), mask, ident)
+    for team in pcurve.ADD_TEAMS:
+        check(f"point_add team={team} lanes=37",
+              call("ez_point_add", [*A, *B], (37,), (37, team)),
+              pcurve.point_add_plain(curve.PointP(*A), curve.PointP(*B)))
+    for G, w in ((3, 128), (5, 2)):
+        mask = torch.zeros(G, w, dtype=torch.bool)
+        mask[0, 0] = mask[G - 1, w - 1] = True
+        mask[1] = True
+        Q = cs._set(cs._gather(P, idx(G, w)), mask, ident)
+        check(f"point_reduce groups={G} w={w}", call("ez_point_reduce", list(Q), (G,), (G, w)),
+              pcurve.reduce_pairwise_plain(curve.PointP(*Q)))
     for team in pcurve.SCAN_TEAMS:
         for S, L in ((6, 37), (5, 3), (3, 70)):
             x, y = cs._gather((ax, ay), idx(S, L))

@@ -21,10 +21,12 @@ them, then one JSON line:
   top             device operations by total time: name, count, total_ms
   launches        kernel launches of the timed create_proof (`build.LAUNCHES`)
   point_launches  the point kernels' share of them (K3-K9)
-  widths          K1 (its three forms: mont_mul, mont_pow, mont_scan) and K2
-                  launches of the profiled create_proof per kernel, field
-                  and power-of-two width (`build.WIDTHS`; elements, for
-                  mont_scan rows x steps), each with the device ms of those
+  widths          K1 (its three forms: mont_mul, mont_pow, mont_scan), K2
+                  (ntt_stages) and K3 (point_add, and its tree form
+                  point_reduce) launches of the profiled create_proof per
+                  kernel, field and power-of-two width (`build.WIDTHS`;
+                  elements, for mont_scan rows x steps, for K3 lanes in),
+                  each with the device ms of those
                   launches (the i-th launch of a kernel is the i-th device
                   event of its name), their summed bound and the gap
                   between the two (`<kernel>_unpaired` says so where the
@@ -54,9 +56,14 @@ TOP = 15
 
 
 # bytes per element of a launch: K1 reads two operands and writes one; its
-# chain forms and K2 read and write each element once (K2's twiddles, at most
-# half as many, left out, so its bound is a floor)
-BYTES_PER_ELEMENT = {"mont_mul": 96, "mont_pow": 64, "mont_scan": 64, "bfly": 64}
+# chain forms and a K2 pass read and write each element once (K2's twiddles,
+# at most half as many, left out, so its bound is a floor); K3 reads two
+# points and writes one per lane, its tree reads one point per partial (its
+# one output per group left out)
+BYTES_PER_ELEMENT = {"mont_mul": 96, "mont_pow": 64, "mont_scan": 64, "ntt_stages": 64,
+                     "point_add": 288, "point_reduce": 96}
+# kernels compiled once per field, whose device names end in `<Fr>`/`<Fq>`
+PER_FIELD = ("mont_mul", "mont_pow", "mont_scan", "ntt_stages")
 
 
 def _bound_ms(kernel, n, products):
@@ -77,7 +84,7 @@ def _widths(ops, widths):
     for kernel in BYTES_PER_ELEMENT:
         mine = [(f, n, prods) for k, f, n, prods in widths if k == kernel]
         events = sorted((s, d, name) for s, d, name in ops if f"{kernel}_kernel" in name)
-        if len(mine) != len(events) or any(
+        if len(mine) != len(events) or kernel in PER_FIELD and any(
                 f"{'Fr' if f.endswith('fr') else 'Fq'}>" not in name
                 for (f, _, _), (_, _, name) in zip(mine, events)):
             out[f"{kernel}_unpaired"] = f"{len(mine)} launches, {len(events)} device events"
