@@ -25,9 +25,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               forms; mont_pow in both fields at widths 1, 8 and 2^14;
               mont_scan also at 1, 16 and 3 rows; K4 and K5 also over a
               ragged lane count and at every team size, K5 also at the
-              projective fused MSM's 3,328-26,624 lanes of 128 steps; K8
-              also at one column, at one window of one doubling and on
-              identities only);
+              projective fused MSM's 3,328-26,624 lanes of 128 steps; K6
+              at 1, 2, 4 and 8 columns and over 3 groups of 37 lanes, K7 at
+              26-208 lanes and at 1,001 lanes of one doubling, each at every
+              team size; K8 also at one column, at one window of one
+              doubling and on identities only);
               timed as device time per launch (`ms`: launches replayed
               from a CUDA graph, cycling over copies of the inputs that
               overflow the L2, so operands come from HBM as `bound_ms`
@@ -42,8 +44,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               are reset just before gen_srs and create_proof and read just
               after each: K1 (all three forms) to K8 must be > 0 in
               create_proof (whose commitments run the fused MSM), K9 in
-              gen_srs; K2 must run two passes per transform, K3 (single
-              and tree) at most 20 times.
+              gen_srs; K2 must run two passes per transform, K6, K7 and
+              K8 once per fused MSM (5), K3 (single and tree) at most 20
+              times.
 5. check   -- 2^14-point MSMs on the card against the host MSM: the fused
               pipeline on the SRS points (affine=True, as commitments run it,
               and affine=False) and the unfused one (K9 must be > 0 there);
@@ -101,9 +104,12 @@ KERNEL_META = {
 }
 POINT_KERNELS = ("point_add", "point_reduce", "point_dbl", "scan_packed", "scan_steps",
                  "fold_lanes", "dbl_pow2", "horner")
-# K3's launches per k = 14 prove: each of its 5 fused MSMs adds the bucket
-# combine, the prefix combine and V once each and runs the halving tree once
-K3_LAUNCHES_MAX = 20
+# The fused MSMs of a k = 14 prove (one per `kzg.commit_many`): each
+# launches K6, K7 and K8 once
+FUSED_MSMS = 5
+# K3's launches per k = 14 prove: each fused MSM adds the bucket combine, the
+# prefix combine and V once each and runs the halving tree once
+K3_LAUNCHES_MAX = 4 * FUSED_MSMS
 
 
 def emit(obj):
@@ -192,6 +198,21 @@ def run_kernel(name, kern, plain, inputs, nbytes, imad, reps=GRAPH_REPS, **extra
     if err:
         raise AssertionError(f"{name} kernel != plain ({extra})")
     return row
+
+
+def team_sweep(name, launch, teams, inputs, want, nbytes, imad, reps, **shape):
+    """`launch(team)`, a kernel of `inputs`, at every team size in `teams`:
+    bit-exact against `want` (or raise) and timed, one `team_sweep` line
+    each."""
+    for team in teams:
+        kern = launch(team)
+        err = max_abs_err(_outputs(kern(*inputs)), _outputs(want))
+        row = dict(max_abs_err=err, team=team, **shape, ms=device_ms(kern, inputs, reps=reps),
+                   l2_ms=device_ms(kern, inputs, cold=False, reps=reps))
+        row["bound_ms"], row["bound_by"] = bound(nbytes, imad)
+        emit({"phase": "kernel", "kernel": name, "team_sweep": True, **row})
+        if err:
+            raise AssertionError(f"{name} kernel != plain (team {team}, {shape})")
 
 
 def _outputs(out):
@@ -494,16 +515,10 @@ def check_point_adds(dev, rng):
     for n in (106496, 26624, 13312, 3328, 1664, 208, 26):
         inputs = points(n) + points(n)
         nbytes, imad = 9 * 32 * n, 12 * mm * n
-        want = pcurve.point_add_plain(curve.PointP(*inputs[:3]), curve.PointP(*inputs[3:]))
-        for team in pcurve.ADD_TEAMS:
-            kern = lambda *t: pcurve._add_launch(t, team)                  # noqa: E731
-            err = max_abs_err(kern(*inputs), want)
-            row = dict(max_abs_err=err, team=team, lanes=n, ms=device_ms(kern, inputs, reps=20),
-                       l2_ms=device_ms(kern, inputs, cold=False, reps=20))
-            row["bound_ms"], row["bound_by"] = bound(nbytes, imad)
-            emit({"phase": "kernel", "kernel": "point_add", "team_sweep": True, **row})
-            if err:
-                raise AssertionError(f"point_add kernel != plain (team {team}, {n} lanes)")
+        team_sweep("point_add", lambda team: lambda *t: pcurve._add_launch(t, team),
+                   pcurve.ADD_TEAMS, inputs,
+                   pcurve.point_add_plain(curve.PointP(*inputs[:3]), curve.PointP(*inputs[3:])),
+                   nbytes, imad, 20, lanes=n)
         run_kernel("point_add", lambda *t: pcurve._add_launch(t, pcurve.point_add_team(n)),
                    lambda *t: pcurve.point_add_plain(curve.PointP(*t[:3]),
                                                      curve.PointP(*t[3:])),
@@ -545,9 +560,11 @@ def check_msm_kernels(dev, rng):
     bit-exact, with edge lanes; one `kernel` line each (both variants of K5
     and K6; K4 at C = 1, 2, 4 and 8 and over a ragged 1,001 lanes, each
     also at every team size; K5 at every team size also at the projective
-    fused MSM's scan of C = 1, 2 and 8 columns; K8 also at one column, at
-    W = 1 with c = 1 and with every V_w the identity). Returns the rows at
-    C = 8."""
+    fused MSM's scan of C = 1, 2 and 8 columns; K6 at C = 1, 2, 4 and 8
+    and over 3 groups of 37 lanes, K7 at C = 1, 2, 4 and 8 and over 1,001
+    lanes of one doubling, each also at every team size; K8 also at one
+    column, at W = 1 with c = 1 and with every V_w the identity). Returns
+    the rows at C = 8."""
     import torch
     from ezkl_tpu_torch.fieldmath import curve, limbs
     from ezkl_tpu_torch.fieldmath.spec import bn254_fq
@@ -579,28 +596,20 @@ def check_msm_kernels(dev, rng):
 
     def scan_teams(inputs, L, **extra):
         """K4 at every team size on one input: bit-exact, device times."""
-        want = pcurve.scan_packed_plain(*inputs)
-        nbytes, imad = (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * extra.pop("adds")
-        for team in pcurve.SCAN_TEAMS:
-            kern = lambda *t: pcurve._scan_packed_launch(*t, team)      # noqa: E731
-            err = max_abs_err(kern(*inputs), want)
-            row = dict(max_abs_err=err, team=team, lanes=L, steps=MSM_S, **extra,
-                       ms=device_ms(kern, inputs, reps=5),
-                       l2_ms=device_ms(kern, inputs, cold=False, reps=5))
-            row["bound_ms"], row["bound_by"] = bound(nbytes, imad)
-            emit({"phase": "kernel", "kernel": "scan_packed", "team_sweep": True, **row})
-            if err:
-                raise AssertionError(f"scan_packed kernel != plain (team {team}, {extra})")
+        team_sweep("scan_packed", lambda team: lambda *t: pcurve._scan_packed_launch(*t, team),
+                   pcurve.SCAN_TEAMS, inputs, pcurve.scan_packed_plain(*inputs),
+                   (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * extra.pop("adds"), 5, lanes=L,
+                   steps=MSM_S, **extra)
 
     for C in (1, 2, 4, 8):
         # K4 at the lanes of the prove's commitments (C = 1 to 8 columns),
-        # with the team `scan_packed_team` picks, then at every team size
+        # with the team `lane_team` picks, then at every team size
         L = C * MSM_W * MSM_N // MSM_S
         inputs, adds = scan_inputs(L)
         row = run_kernel("scan_packed", pcurve._scan_packed_kernel, pcurve.scan_packed_plain,
                          inputs, (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * adds,
                          reps=20 if C == 1 else 5, columns=C, lanes=L, steps=MSM_S,
-                         team=pcurve.scan_packed_team(L))
+                         team=pcurve.lane_team(L))
         scan_teams(inputs, L, columns=C, adds=adds)
         del inputs
     rows["scan_packed"] = row
@@ -610,7 +619,7 @@ def check_msm_kernels(dev, rng):
     inputs, adds = scan_inputs(L)
     run_kernel("scan_packed", pcurve._scan_packed_kernel, pcurve.scan_packed_plain, inputs,
                (2 * 32 + 4 + 96) * MSM_S * L, 11 * mm * adds, reps=20, lanes=L, steps=MSM_S,
-               team=pcurve.scan_packed_team(L))
+               team=pcurve.lane_team(L))
     scan_teams(inputs, L, adds=adds)
     del inputs
 
@@ -621,19 +630,11 @@ def check_msm_kernels(dev, rng):
 
     def steps_teams(variant, inputs, L, S, nbytes, imad, **extra):
         """K5 at every team size on one input: bit-exact, device times."""
-        want = pcurve.scan_steps_plain(point(inputs))
-        reps = 20 if L * S <= 1 << 16 else 5
-        for team in pcurve.SCAN_TEAMS:
-            kern = lambda *t: pcurve._scan_steps_launch(point(t), team)  # noqa: E731
-            err = max_abs_err(kern(*inputs), want)
-            row = dict(max_abs_err=err, variant=variant, team=team, lanes=L, steps=S, **extra,
-                       ms=device_ms(kern, inputs, reps=reps),
-                       l2_ms=device_ms(kern, inputs, cold=False, reps=reps))
-            row["bound_ms"], row["bound_by"] = bound(nbytes, imad)
-            emit({"phase": "kernel", "kernel": "scan_steps", "team_sweep": True, **row})
-            if err:
-                raise AssertionError(f"scan_steps kernel != plain (team {team}, {variant}, "
-                                     f"{L} lanes)")
+        team_sweep("scan_steps", lambda team: lambda *t: pcurve._scan_steps_launch(point(t),
+                                                                                  team),
+                   pcurve.SCAN_TEAMS, inputs, pcurve.scan_steps_plain(point(inputs)), nbytes,
+                   imad, 20 if L * S <= 1 << 16 else 5, variant=variant, lanes=L, steps=S,
+                   **extra)
 
     def steps_inputs(L, S):
         """K5's inputs over L lanes of S steps: projective with identities at
@@ -646,7 +647,7 @@ def check_msm_kernels(dev, rng):
         return list(_set(_gather(P, idx), mask, ident)), list(_gather((ax, ay), idx))
 
     # K5 at the block-total prefix's first level: C * 104 lanes x 32 steps,
-    # with the team `scan_steps_team` picks, then at every team size; and
+    # with the team `lane_team` picks, then at every team size; and
     # over a lane count that fills no block of either team size
     S = 32
     for L in (G * 4, 1001):
@@ -656,7 +657,7 @@ def check_msm_kernels(dev, rng):
             row = run_kernel("scan_steps", lambda *t: pcurve._scan_steps_kernel(point(t)),
                              lambda *t: pcurve.scan_steps_plain(point(t)), inputs, nbytes,
                              imad, variant=variant, **({"columns": C} if L == G * 4 else {}),
-                             lanes=L, steps=S, team=pcurve.scan_steps_team(L))
+                             lanes=L, steps=S, team=pcurve.lane_team(L))
             if variant == "complete" and L == G * 4:
                 rows["scan_steps"] = row
             steps_teams(variant, inputs, L, S, nbytes, imad)
@@ -673,31 +674,51 @@ def check_msm_kernels(dev, rng):
                     columns=Cp)
         del Pq
 
-    # K6 over the B = 512 bucket sums of every window: G groups, 4 chunks of 128
-    chunks, blk = 4, 128
-    idx = rand_idx(G, chunks * blk)
-    mask = torch_index(rng.random((G, chunks * blk)) < 0.05, dev).bool()
-    mask[0, 0] = True
-    Pq = _set(_gather(P, idx), mask, ident)
-    Pa = _gather((ax, ay), idx)
-    for variant, inputs, nin, muls in (("complete", list(Pq), 3, 12), ("mixed", list(Pa), 2, 11)):
-        row = run_kernel("fold_lanes", lambda *t: pcurve._fold_lanes_kernel(
-                             curve.PointP(*t) if len(t) == 3 else t, blk),
-                         lambda *t: pcurve.fold_lanes_plain(
-                             curve.PointP(*t) if len(t) == 3 else t, blk),
-                         inputs, nin * 32 * G * chunks * blk + 96 * G * blk,
-                         muls * mm * (chunks - 1) * G * blk,
-                         variant=variant, columns=C, groups=G, chunks=chunks, blk=blk)
+    # K6 over the B = 512 bucket sums of every window: C * 26 groups of 4
+    # chunks of 128 lanes, complete at the C = 1, 2, 4 and 8 columns of the
+    # prove's commitments and mixed at C = 8, with the team
+    # `lane_team` picks, then at every team size; and 3 groups of 37
+    # lanes, which fill no block of any team size
+    def fold(variant, Gf, chunks, blk, **extra):
+        idx = rand_idx(Gf, chunks * blk)
         if variant == "complete":
-            rows["fold_lanes"] = row
+            mask = torch_index(rng.random((Gf, chunks * blk)) < 0.05, dev).bool()
+            mask[0, 0] = True
+            inputs, nin, muls = list(_set(_gather(P, idx), mask, ident)), 3, 12
+        else:
+            inputs, nin, muls = list(_gather((ax, ay), idx)), 2, 11
+        lanes = Gf * blk
+        nbytes, imad = (nin * chunks + 3) * 32 * lanes, muls * mm * (chunks - 1) * lanes
+        shape = dict(variant=variant, **extra, groups=Gf, chunks=chunks, blk=blk, lanes=lanes)
+        row = run_kernel("fold_lanes", lambda *t: pcurve._fold_lanes_kernel(point(t), blk),
+                         lambda *t: pcurve.fold_lanes_plain(point(t), blk), inputs, nbytes,
+                         imad, reps=20, **shape, team=pcurve.lane_team(lanes))
+        team_sweep("fold_lanes", lambda team: lambda *t: pcurve._fold_lanes_launch(
+                       point(t), blk, team), pcurve.SCAN_TEAMS, inputs,
+                   pcurve.fold_lanes_plain(point(inputs), blk), nbytes, imad, 20, **shape)
+        return row
 
-    # K7: 2^(c-1) * T_w over the C * 26 window totals, c = 10
-    lane0 = torch.arange(G, device=dev) == 0
-    T = _set(_gather(P, rand_idx(G)), lane0, ident)
-    rows["dbl_pow2"] = run_kernel("dbl_pow2",
-                                  lambda *t: pcurve._dbl_pow2_kernel(curve.PointP(*t), 9),
-                                  lambda *t: pcurve.dbl_pow2_plain(curve.PointP(*t), 9),
-                                  list(T), 6 * 32 * G, 9 * 8 * mm * G, lanes=G, c=9)
+    for Cf in (1, 2, 4, 8):
+        row = fold("complete", Cf * MSM_W, 4, 128, columns=Cf)
+    rows["fold_lanes"] = row
+    fold("mixed", G, 4, 128, columns=C)
+    fold("complete", 3, 4, 37)
+    fold("mixed", 3, 4, 37)
+
+    # K7: 2^(c-1) * T_w over the C * 26 window totals, c = 10, at C = 1, 2, 4
+    # and 8; and one doubling over 1,001 lanes; identity lanes first and last
+    def dbl(n, c, **extra):
+        ends = torch.zeros(n, dtype=torch.bool, device=dev)
+        ends[0] = ends[-1] = True
+        inputs = list(_set(_gather(P, rand_idx(n)), ends, ident))
+        return run_kernel("dbl_pow2", lambda *t: pcurve._dbl_pow2_kernel(curve.PointP(*t), c),
+                          lambda *t: pcurve.dbl_pow2_plain(curve.PointP(*t), c), inputs,
+                          6 * 32 * n, c * 8 * mm * n, **extra, lanes=n, c=c)
+
+    for Cd in (1, 2, 4, 8):
+        row = dbl(Cd * MSM_W, MSM_C - 1, columns=Cd)
+    rows["dbl_pow2"] = row
+    dbl(1001, 1)
 
     # K8: W = 26 windows at c = 10 over C columns; then one column, one
     # window of one doubling, and every V_w the identity
@@ -834,6 +855,10 @@ def prove(dev, rng):
     if not (launches["ntt_stages"] == transforms["passes"] == 2 * transforms["calls"]):
         raise AssertionError(f"ntt_stages launched {launches['ntt_stages']} times for "
                              f"{transforms['calls']} transforms of 2 passes each")
+    once = {k: launches[k] for k in ("fold_lanes", "dbl_pow2", "horner")}
+    if set(once.values()) != {FUSED_MSMS}:
+        raise AssertionError(f"K6, K7, K8 launched {once} times, not once per fused MSM "
+                             f"({FUSED_MSMS})")
     if launches["point_add"] + launches["point_reduce"] > K3_LAUNCHES_MAX:
         raise AssertionError(f"K3 launched {launches['point_add']} + "
                              f"{launches['point_reduce']} times, above {K3_LAUNCHES_MAX}")

@@ -456,81 +456,6 @@ __device__ __forceinline__ Fe xb3(const Fe& a) {
   return add2p<F>(t8, a);
 }
 
-// RCB15 algorithm 7 (a = 0, b3 = 9), the schedule of pcurve._complete_add_l.
-// Lazy inside; the caller reduces the three outputs.
-template <class F>
-__device__ __forceinline__ void complete_add(const Fe& X1, const Fe& Y1, const Fe& Z1,
-                                             const Fe& X2, const Fe& Y2, const Fe& Z2,
-                                             Fe& X3, Fe& Y3, Fe& Z3) {
-  Fe t0 = mul_lazy<F>(X1, X2);
-  Fe t1 = mul_lazy<F>(Y1, Y2);
-  Fe t2 = mul_lazy<F>(Z1, Z2);
-  Fe t3 = add2p<F>(X1, Y1);
-  Fe t4 = add2p<F>(X2, Y2);
-  t3 = mul_lazy<F>(t3, t4);
-  t4 = add2p<F>(t0, t1);
-  t3 = sub2p<F>(t3, t4);
-  t4 = add2p<F>(Y1, Z1);
-  X3 = add2p<F>(Y2, Z2);
-  t4 = mul_lazy<F>(t4, X3);
-  X3 = add2p<F>(t1, t2);
-  t4 = sub2p<F>(t4, X3);
-  X3 = add2p<F>(X1, Z1);
-  Y3 = add2p<F>(X2, Z2);
-  X3 = mul_lazy<F>(X3, Y3);
-  Y3 = add2p<F>(t0, t2);
-  Y3 = sub2p<F>(X3, Y3);
-  X3 = add2p<F>(t0, t0);
-  t0 = add2p<F>(X3, t0);
-  t2 = xb3<F>(t2);
-  Z3 = add2p<F>(t1, t2);
-  t1 = sub2p<F>(t1, t2);
-  Y3 = xb3<F>(Y3);
-  X3 = mul_lazy<F>(t4, Y3);
-  t2 = mul_lazy<F>(t3, t1);
-  X3 = sub2p<F>(t2, X3);
-  Y3 = mul_lazy<F>(Y3, t0);
-  t1 = mul_lazy<F>(t1, Z3);
-  Y3 = add2p<F>(t1, Y3);
-  t0 = mul_lazy<F>(t0, t3);
-  Z3 = mul_lazy<F>(Z3, t4);
-  Z3 = add2p<F>(Z3, t0);
-}
-
-// RCB15 algorithm 8 (a = 0, b3 = 9), the schedule of pcurve._mixed_add_l:
-// (X1:Y1:Z1) projective (identity allowed) plus the affine (X2, Y2), which
-// must not be the identity. 11 products. Lazy inside, as complete_add.
-template <class F>
-__device__ __forceinline__ void mixed_add(const Fe& X1, const Fe& Y1, const Fe& Z1,
-                                          const Fe& X2, const Fe& Y2, Fe& X3, Fe& Y3, Fe& Z3) {
-  Fe t0 = mul_lazy<F>(X1, X2);
-  Fe t1 = mul_lazy<F>(Y1, Y2);
-  Fe t3 = add2p<F>(X2, Y2);
-  Fe t4 = add2p<F>(X1, Y1);
-  t3 = mul_lazy<F>(t3, t4);
-  t4 = add2p<F>(t0, t1);
-  t3 = sub2p<F>(t3, t4);
-  t4 = mul_lazy<F>(Y2, Z1);
-  t4 = add2p<F>(t4, Y1);
-  Y3 = mul_lazy<F>(X2, Z1);
-  Y3 = add2p<F>(Y3, X1);
-  X3 = add2p<F>(t0, t0);
-  t0 = add2p<F>(X3, t0);
-  Fe t2 = xb3<F>(Z1);
-  Z3 = add2p<F>(t1, t2);
-  t1 = sub2p<F>(t1, t2);
-  Y3 = xb3<F>(Y3);
-  X3 = mul_lazy<F>(t4, Y3);
-  t2 = mul_lazy<F>(t3, t1);
-  X3 = sub2p<F>(t2, X3);
-  Y3 = mul_lazy<F>(Y3, t0);
-  t1 = mul_lazy<F>(t1, Z3);
-  Y3 = add2p<F>(t1, Y3);
-  t0 = mul_lazy<F>(t0, t3);
-  Z3 = mul_lazy<F>(Z3, t4);
-  Z3 = add2p<F>(Z3, t0);
-}
-
 // RCB15 algorithm 9 (a = 0, b3 = 9), the schedule of pcurve._dbl_l.
 template <class F>
 __device__ __forceinline__ void dbl(const Fe& X, const Fe& Y, const Fe& Z,
@@ -569,8 +494,9 @@ __device__ __forceinline__ void dbl(const Fe& X, const Fe& Y, const Fe& Z,
 // `xb3` up to the next level itself. A point operation's critical path is
 // ceil(K1 / T) + ceil(K2 / T) products instead of K1 + K2; the adds run in
 // all T threads. Every product keeps the lazy contract (< 2p in, < 2p out)
-// and the values are those of `complete_add`, `mixed_add` and `dbl`, so
-// the canonical outputs equal theirs.
+// and the values are those of RCB15's schedules as the plain versions
+// run them (`kernels/pcurve.py`: `_complete_add_w`, `_mixed_add_w`, `_dbl_w`;
+// `dbl` above), so the canonical outputs equal theirs.
 //
 // Slots: level 1 of every formula uses half 0, level 2 half 1. A thread
 // writes half h only after the team's barrier of the level in between,
@@ -657,7 +583,7 @@ __device__ __forceinline__ void team_level(const Team<T>& tm, const Fe (&a)[K], 
 }
 
 // Level 2 and the last adds of alg. 7 and alg. 8, which share them, from
-// 3 * t0, t1 - t2, t3, t4, xb3(Y3) and t1 + t2 of `complete_add`. The
+// 3 * t0, t1 - t2, t3, t4, xb3(Y3) and t1 + t2 of `_complete_add_w`. The
 // operands are paired so that each round of a team of two shares one.
 template <class F, int T>
 __device__ __forceinline__ void team_add_tail(const Team<T>& tm, const Fe& t0, const Fe& t1,
@@ -672,7 +598,7 @@ __device__ __forceinline__ void team_add_tail(const Team<T>& tm, const Fe& t0, c
   Z3 = add2p_cc<F>(q[3], q[5]);
 }
 
-// RCB15 alg. 7 by a team: the values of `complete_add`.
+// RCB15 alg. 7 by a team: the values of `_complete_add_w`.
 template <class F, int T>
 __device__ __forceinline__ void team_complete_add(const Team<T>& tm, const Fe& X1, const Fe& Y1,
                                                   const Fe& Z1, const Fe& X2, const Fe& Y2,
@@ -692,7 +618,7 @@ __device__ __forceinline__ void team_complete_add(const Team<T>& tm, const Fe& X
   team_add_tail<F>(tm, t0x3, sub2p_cc<F>(t1, t2), t3, t4, y3, z3, X3, Y3, Z3);
 }
 
-// RCB15 alg. 8 by a team: the values of `mixed_add`.
+// RCB15 alg. 8 by a team: the values of `_mixed_add_w`.
 template <class F, int T>
 __device__ __forceinline__ void team_mixed_add(const Team<T>& tm, const Fe& X1, const Fe& Y1,
                                                const Fe& Z1, const Fe& X2, const Fe& Y2, Fe& X3,

@@ -1,8 +1,8 @@
 // Point kernels of the fused MSM (`kernels/msm.py:msm_multi`) over BN254 G1,
 // y^2 = x^3 + 3, projective (X:Y:Z) with identity (0:1:0). Each kernel keeps a
-// sequential chain of point operations inside one launch, one thread per lane
-// with the accumulator in registers, where the unfused MSM issued one K3 or
-// K9 launch per step.
+// sequential chain of point operations inside one launch, a team of threads
+// per lane with the accumulator in registers, where the unfused MSM issued
+// one K3 or K9 launch per step.
 //
 //   K4 ez_scan_packed  replaces `_scan_call_packed` (ezkl_tpu/kernels/pcurve.py,
 //                      entry `prefix_scan_packed`): per lane, the inclusive
@@ -36,20 +36,20 @@
 // against 2 or 3 loads and 3 stores of 32 bytes per lane. K7 and K8 run at
 // widths of C*W and C lanes (a few hundred and at most 16 at k = 14): far too
 // few threads to fill the card, so each is bound by the latency of its
-// dependent chain (K8 at k = 14: 26 windows x (10 doublings + 1 add)).
+// dependent chain (K7 at k = 14: 9 doublings; K8: 26 windows x (10
+// doublings + 1 add)), and so are K4-K6 at one column.
 // Design: the whole step loop inside the kernel, so the carried point never
-// leaves registers. K6 and K7 run one thread per lane in narrow blocks, so
-// that the lanes spread over all SMs. K4, K5 and K8 run a team of threads per
-// lane or column (bn254.cuh, "teams"): the products of each level of a
-// formula side by side, so a chain's critical path is 2-6 products per point
-// operation instead of 8-12. A team repeats the adds between the levels in
-// each of its threads, so K4 and K5 take a smaller team where many lanes
-// already fill the card (`pcurve.scan_packed_team`, `pcurve.scan_steps_team`;
-// K5's 832 lanes of 32 steps at k = 14 are 13 warps with one thread per
-// lane); K8's few columns take teams of 8, one per block. Step-major layouts
-// (8, S, m) -- element (limb i, step s, lane l) at (i * S + s) * m + l -- make the
-// lanes of one step contiguous, so the loads and stores of a warp coalesce;
-// the MSM's gather writes that layout directly.
+// leaves registers, and a team of threads per lane or column (bn254.cuh,
+// "teams"): the products of each level of a formula side by side on the
+// carry flag, so a chain's critical path is 2-6 products per point operation
+// instead of 8-12. A team repeats the adds between the levels in each of its
+// threads, so K4, K5 and K6 take a smaller team where many lanes already fill
+// the card (`pcurve.lane_team`); K7's few hundred lanes take teams of 4
+// (kDblTeam), a warp of teams per block; K8's few columns take teams of 8,
+// one per block. Step-major layouts (8, S, m) -- element (limb i,
+// step s, lane l) at (i * S + s) * m + l -- make the lanes of one step
+// contiguous, so the loads and stores of a warp coalesce; the MSM's gather
+// writes that layout directly.
 
 #include <cuda_runtime.h>
 
@@ -59,16 +59,19 @@ using namespace bn254;
 
 namespace {
 
-constexpr int kScanThreads = 64;
-// Threads per block of K4 and K5 with teams of T: blocks of 4 lanes for
+// Threads per block of K4, K5 and K6 with teams of T: blocks of 4 lanes for
 // teams of 8, so that a few thousand lanes still spread evenly over the 132
 // SMs, and of 64 lanes for teams of 2 (block sizes measured for K4, PERF.md;
-// K5 takes the same).
+// K5 and K6 take the same).
 template <int T>
 __host__ __device__ constexpr int team_block() {
   return T == 8 ? 32 : 128;
 }
-constexpr int kChainThreads = 32;
+constexpr int kWarp = 32;
+// K7's team: alg. 9 has two levels of 4 products, so teams of 4 have the
+// critical path of teams of 8 with half the threads (teams of 8 measured as
+// fast, of 2 twice as slow; PERF.md).
+constexpr int kDblTeam = 4;
 constexpr int kHornerTeam = 8;
 
 __device__ __forceinline__ Fe fq_one() {
@@ -94,28 +97,6 @@ __device__ __forceinline__ Fe neg_raw(const Fe& y) {
 #pragma unroll
   for (int i = 1; i < 8; ++i) r.v[i] = subc_cc(Fq::p(i), y.v[i], cf);
   return r;
-}
-
-__device__ __forceinline__ void store_point(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                                            uint32_t* __restrict__ oz, long long stride,
-                                            long long j, const Fe& X, const Fe& Y, const Fe& Z) {
-  store(ox, stride, j, reduce<Fq>(X));
-  store(oy, stride, j, reduce<Fq>(Y));
-  store(oz, stride, j, reduce<Fq>(Z));
-}
-
-// acc += (X2, Y2[, Z2]) by the complete (alg. 7) or the mixed (alg. 8) add
-template <bool Mixed>
-__device__ __forceinline__ void accumulate(Fe& X, Fe& Y, Fe& Z, const Fe& X2, const Fe& Y2,
-                                           const Fe& Z2) {
-  Fe X3, Y3, Z3;
-  if (Mixed)
-    mixed_add<Fq>(X, Y, Z, X2, Y2, X3, Y3, Z3);
-  else
-    complete_add<Fq>(X, Y, Z, X2, Y2, Z2, X3, Y3, Z3);
-  X = X3;
-  Y = Y3;
-  Z = Z3;
 }
 
 __device__ __forceinline__ bool is_pad_pair(const Fe& x, const Fe& y) {
@@ -219,55 +200,77 @@ __global__ void __launch_bounds__(team_block<T>())
   }
 }
 
-// K6: input (8, G, chunks, blk), output (8, G, blk); thread t = g * blk + l.
+// The point at element e of a (8, ...) batch of `stride` elements per limb
+// (z = 1 for affine inputs).
 template <bool Mixed>
-__global__ void __launch_bounds__(kScanThreads)
-    fold_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-                const uint32_t* __restrict__ z, uint32_t* __restrict__ ox,
-                uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, long long groups,
-                int chunks, int blk) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long lanes = groups * blk;
-  if (t >= lanes) return;
-  const long long stride = lanes * chunks;
-  const long long base = (t / blk) * chunks * blk + t % blk;
-  Fe X, Y, Z;
-  for (int j = 0; j < chunks; ++j) {
-    const long long e = base + (long long)j * blk;
-    const Fe X2 = load(x, stride, e);
-    const Fe Y2 = load(y, stride, e);
-    const Fe Z2 = Mixed ? fq_one() : load(z, stride, e);
-    if (j == 0) {
-      X = X2;
-      Y = Y2;
-      Z = Z2;
-    } else {
-      accumulate<Mixed>(X, Y, Z, X2, Y2, Z2);
-    }
-  }
-  store_point(ox, oy, oz, lanes, t, X, Y, Z);
+__device__ __forceinline__ void load_point(const uint32_t* __restrict__ x,
+                                           const uint32_t* __restrict__ y,
+                                           const uint32_t* __restrict__ z, long long stride,
+                                           long long e, Fe& X, Fe& Y, Fe& Z) {
+  X = load(x, stride, e);
+  Y = load(y, stride, e);
+  Z = Mixed ? fq_one() : load(z, stride, e);
 }
 
-__device__ __forceinline__ void dbl_n(Fe& X, Fe& Y, Fe& Z, int c) {
-  for (int k = 0; k < c; ++k) {
+// K6: input (8, G, chunks, blk), output (8, G, blk); a team of T threads per
+// lane l = g * blk + i, team_block<T>() / T lanes per block, as K4 and K5.
+// The team sums chunks 0 .. chunks-1 in order, by complete adds (alg. 7,
+// identities allowed) or mixed adds (alg. 8, affine inputs, no identities);
+// chunk j+1's point is loaded before chunk j's add, so that its load does
+// not wait on the chain. One canonical store, each thread its limbs.
+template <bool Mixed, int T>
+__global__ void __launch_bounds__(team_block<T>())
+    fold_lanes_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                      const uint32_t* __restrict__ z, uint32_t* __restrict__ ox,
+                      uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, long long groups,
+                      int chunks, int blk) {
+  constexpr int kTeams = team_block<T>() / T;
+  __shared__ TeamSlots<T, kTeams> slots;
+  const long long l = (long long)blockIdx.x * kTeams + threadIdx.x / T;
+  const long long lanes = groups * blk;
+  if (l >= lanes) return;  // the whole team: l is the same in its threads
+  const Team<T> tm = make_team(slots);
+  const long long stride = lanes * chunks;
+  const long long base = (l / blk) * chunks * blk + l % blk;
+  Fe X, Y, Z, X2, Y2, Z2;
+  load_point<Mixed>(x, y, z, stride, base, X, Y, Z);
+  if (chunks > 1) load_point<Mixed>(x, y, z, stride, base + blk, X2, Y2, Z2);
+  for (int j = 1; j < chunks; ++j) {
+    const Fe Xj = X2, Yj = Y2, Zj = Z2;
+    if (j + 1 < chunks)
+      load_point<Mixed>(x, y, z, stride, base + (long long)(j + 1) * blk, X2, Y2, Z2);
     Fe X3, Y3, Z3;
-    dbl<Fq>(X, Y, Z, X3, Y3, Z3);
+    if (Mixed)
+      team_mixed_add<Fq>(tm, X, Y, Z, Xj, Yj, X3, Y3, Z3);
+    else
+      team_complete_add<Fq>(tm, X, Y, Z, Xj, Yj, Zj, X3, Y3, Z3);
     X = X3;
     Y = Y3;
     Z = Z3;
   }
+  team_store_point(tm, ox, oy, oz, lanes, l, X, Y, Z);
 }
 
-// K7: (8, n) -> (8, n), c >= 1 doublings.
-__global__ void __launch_bounds__(kChainThreads)
+// K7: (8, n) -> (8, n), c >= 1 doublings; a team of kDblTeam threads per
+// lane, a warp of 32 / kDblTeam teams per block.
+__global__ void __launch_bounds__(kWarp)
     dbl_pow2_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                     const uint32_t* __restrict__ z, uint32_t* __restrict__ ox,
                     uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, long long n, int c) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
+  constexpr int kTeams = kWarp / kDblTeam;
+  __shared__ TeamSlots<kDblTeam, kTeams> slots;
+  const long long j = (long long)blockIdx.x * kTeams + threadIdx.x / kDblTeam;
+  if (j >= n) return;  // the whole team
+  const Team<kDblTeam> tm = make_team(slots);
   Fe X = load(x, n, j), Y = load(y, n, j), Z = load(z, n, j);
-  dbl_n(X, Y, Z, c);
-  store_point(ox, oy, oz, n, j, X, Y, Z);
+  for (int k = 0; k < c; ++k) {
+    Fe X3, Y3, Z3;
+    team_dbl<Fq>(tm, X, Y, Z, X3, Y3, Z3);
+    X = X3;
+    Y = Y3;
+    Z = Z3;
+  }
+  team_store_point(tm, ox, oy, oz, n, j, X, Y, Z);
 }
 
 // K8: v (8, W, width), MSB window first -> (8, width); one team of
@@ -320,11 +323,19 @@ void launch_scan_packed(const uint32_t* px, const uint32_t* py, const int32_t* s
       px, py, sn, ox, oy, oz, m, steps);
 }
 
+template <bool Mixed, int T>
+void launch_fold(const uint32_t* x, const uint32_t* y, const uint32_t* z, uint32_t* ox,
+                 uint32_t* oy, uint32_t* oz, long long groups, int chunks, int blk,
+                 cudaStream_t s) {
+  fold_lanes_kernel<Mixed, T><<<blocks_for(groups * blk, team_block<T>() / T), team_block<T>(),
+                                0, s>>>(x, y, z, ox, oy, oz, groups, chunks, blk);
+}
+
 }  // namespace
 
 // Every entry returns cudaGetLastError() after its launch.
 
-// team: threads per lane, 2 or 8 (`pcurve.scan_packed_team` chooses)
+// team: threads per lane, 2 or 8 (`pcurve.lane_team` chooses)
 extern "C" int ez_scan_packed(const uint32_t* px, const uint32_t* py, const int32_t* sn,
                               uint32_t* ox, uint32_t* oy, uint32_t* oz, long long m, int steps,
                               int team, void* stream) {
@@ -339,7 +350,7 @@ extern "C" int ez_scan_packed(const uint32_t* px, const uint32_t* py, const int3
 }
 
 // mixed: 0 = projective inputs (x, y, z) by complete adds, 1 = affine (x, y);
-// team: threads per lane, 2 or 8 (`pcurve.scan_steps_team` chooses)
+// team: threads per lane, 2 or 8 (`pcurve.lane_team` chooses)
 extern "C" int ez_scan_steps(int mixed, const uint32_t* x, const uint32_t* y, const uint32_t* z,
                              uint32_t* ox, uint32_t* oy, uint32_t* oz, long long m, int steps,
                              int team, void* stream) {
@@ -356,21 +367,27 @@ extern "C" int ez_scan_steps(int mixed, const uint32_t* x, const uint32_t* y, co
   return (int)cudaGetLastError();
 }
 
+// mixed as ez_scan_steps; team: threads per lane, 2 or 8
+// (`pcurve.lane_team` chooses)
 extern "C" int ez_fold_lanes(int mixed, const uint32_t* x, const uint32_t* y, const uint32_t* z,
                              uint32_t* ox, uint32_t* oy, uint32_t* oz, long long groups,
-                             int chunks, int blk, void* stream) {
+                             int chunks, int blk, int team, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned b = blocks_for(groups * blk, kScanThreads);
-  if (mixed)
-    fold_kernel<true><<<b, kScanThreads, 0, s>>>(x, y, nullptr, ox, oy, oz, groups, chunks, blk);
+  if (team != 2 && team != 8) return (int)cudaErrorInvalidValue;
+  if (mixed && team == 2)
+    launch_fold<true, 2>(x, y, nullptr, ox, oy, oz, groups, chunks, blk, s);
+  else if (mixed)
+    launch_fold<true, 8>(x, y, nullptr, ox, oy, oz, groups, chunks, blk, s);
+  else if (team == 2)
+    launch_fold<false, 2>(x, y, z, ox, oy, oz, groups, chunks, blk, s);
   else
-    fold_kernel<false><<<b, kScanThreads, 0, s>>>(x, y, z, ox, oy, oz, groups, chunks, blk);
+    launch_fold<false, 8>(x, y, z, ox, oy, oz, groups, chunks, blk, s);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ez_dbl_pow2(const uint32_t* x, const uint32_t* y, const uint32_t* z, uint32_t* ox,
                            uint32_t* oy, uint32_t* oz, long long n, int c, void* stream) {
-  dbl_pow2_kernel<<<blocks_for(n, kChainThreads), kChainThreads, 0, (cudaStream_t)stream>>>(
+  dbl_pow2_kernel<<<blocks_for(n, kWarp / kDblTeam), kWarp, 0, (cudaStream_t)stream>>>(
       x, y, z, ox, oy, oz, n, c);
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,9 @@ Nothing here falls back: a missing `nvcc` or a failed build raises.
 `LAUNCHES` counts the kernel launches of each wrapper: a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels. `WIDTHS` keeps, beside it, the width and
-the Montgomery products of each K1 (`mont_mul`, `mont_pow`, `mont_scan`), K2
-(`ntt_stages`) and K3 (`point_add`, `point_reduce`) launch, so a run can also
-show how wide they were.
+the Montgomery products of each launch of K1 (`mont_mul`, `mont_pow`,
+`mont_scan`), K2 (`ntt_stages`), K3 (`point_add`, `point_reduce`) and the
+fused MSM's K4-K8, so a run can also show how wide they were.
 """
 
 from __future__ import annotations
@@ -36,7 +36,10 @@ LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "mont_scan": 0, "ntt_stages": 0, "poin
 
 # (kernel, field, elements, products) of every K1 (`mont_mul`, `mont_pow`,
 # `mont_scan`), K2 (`ntt_stages`) and K3 (`point_add`, `point_reduce`; field
-# bn254_fq, elements = lanes in, products = 12 per add) launch since the last
+# bn254_fq, elements = lanes in, products = 12 per add) launch, and
+# (kernel, field, lanes, products, bytes) of every K4-K8 launch (`scan_packed`,
+# `scan_steps`, `fold_lanes`, `dbl_pow2`, `horner`: lanes = point chains,
+# bytes = each input read and each output written once), since the last
 # `reset_launches`, in launch order; bounded (a k = 14 prove made about 6,000
 # of them when every product of a chain was a `mont_mul` launch).
 WIDTHS: collections.deque = collections.deque(maxlen=1 << 16)
@@ -54,7 +57,7 @@ _SIGNATURES = {
     "ez_point_dbl": [_VP] * 6 + [_LL, _VP],
     "ez_scan_packed": [_VP] * 6 + [_LL, _I, _I, _VP],
     "ez_scan_steps": [_I] + [_VP] * 6 + [_LL, _I, _I, _VP],
-    "ez_fold_lanes": [_I] + [_VP] * 6 + [_LL, _I, _I, _VP],
+    "ez_fold_lanes": [_I] + [_VP] * 6 + [_LL, _I, _I, _I, _VP],
     "ez_dbl_pow2": [_VP] * 6 + [_LL, _I, _VP],
     "ez_horner": [_VP] * 6 + [_I, _I, _LL, _VP],
 }

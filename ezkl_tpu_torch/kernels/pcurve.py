@@ -259,30 +259,34 @@ def scan_packed_plain(px, py, sn) -> PointP:
     return _chain_plain((limbs._w(px), limbs._w(y)), 0, mixed=True, every=True, skip=pad)
 
 
-# K4 and K5 run a team of 8 or 2 threads per lane (`csrc/msm.cu`). The larger
-# team shortens a lane's chain but repeats the adds between the products in
-# every thread: it pays where few lanes leave the card idle, the smaller one
-# where many lanes fill it. The limit is from the H100 sweeps of both kernels
-# at 832-1,001 and 3,328 to 26,624 lanes in `chip_smoke.py`: each crosses
-# between 3,328 and 6,656 lanes (PERF.md, K4's and K5's rows); teams of 4
-# were never the fastest for K4.
+# K4, K5 and K6 run a team of 8 or 2 threads per lane (`csrc/msm.cu`). The
+# larger team shortens a lane's chain but repeats the adds between the
+# products in every thread: it pays where few lanes leave the card idle, the
+# smaller one where many lanes fill it. The limit is from the H100 sweeps of
+# each of the three kernels at 832-1,001 and 3,328 to 26,624 lanes in
+# `chip_smoke.py`: each crosses between 3,328 and 6,656 lanes (PERF.md, K4's,
+# K5's and K6's rows); teams of 4 were never the fastest for K4.
 SCAN_TEAMS = (2, 8)
 SCAN_TEAM8_LANES = 4096
 
 
-def scan_packed_team(m: int) -> int:
-    """Threads per lane of K4 for m lanes."""
+def lane_team(m: int) -> int:
+    """Threads per lane of K4, K5 or K6 for m lanes."""
     return 8 if m <= SCAN_TEAM8_LANES else 2
 
 
 def _scan_packed_launch(px, py, sn, team: int) -> PointP:
     S, m = px.shape[1:]
-    return _kernel("scan_packed", "ez_scan_packed", (px, py), (S, m), post=(m, S, team),
-                   sign=sn)
+    out = _kernel("scan_packed", "ez_scan_packed", (px, py), (S, m), post=(m, S, team),
+                  sign=sn)
+    if m * S:
+        build.WIDTHS.append(("scan_packed", FQ.name, m, 11 * (S - 1) * m,
+                             (2 * 32 + 4 + 3 * 32) * S * m))
+    return out
 
 
 def _scan_packed_kernel(px, py, sn) -> PointP:
-    return _scan_packed_launch(px, py, sn, scan_packed_team(px.shape[2]))
+    return _scan_packed_launch(px, py, sn, lane_team(px.shape[2]))
 
 
 def scan_packed_steps(px, py, sn) -> PointP:
@@ -318,20 +322,19 @@ def scan_steps_plain(p) -> PointP:
     return _chain_plain(tuple(limbs._w(c) for c in coords), 0, mixed, every=True)
 
 
-def scan_steps_team(m: int) -> int:
-    """Threads per lane of K5 for m lanes."""
-    return 8 if m <= SCAN_TEAM8_LANES else 2
-
-
 def _scan_steps_launch(p, team: int) -> PointP:
     coords, mixed = _coords(p)
     S, m = coords[0].shape[1:]
-    return _kernel("scan_steps", "ez_scan_steps", coords, (S, m), pre=(int(mixed),),
-                   post=(m, S, team))
+    out = _kernel("scan_steps", "ez_scan_steps", coords, (S, m), pre=(int(mixed),),
+                  post=(m, S, team))
+    if m * S:
+        build.WIDTHS.append(("scan_steps", FQ.name, m, (11 if mixed else 12) * (S - 1) * m,
+                             (len(coords) + 3) * 32 * S * m))
+    return out
 
 
 def _scan_steps_kernel(p) -> PointP:
-    return _scan_steps_launch(p, scan_steps_team(_coords(p)[0][0].shape[2]))
+    return _scan_steps_launch(p, lane_team(_coords(p)[0][0].shape[2]))
 
 
 def scan_steps(p) -> PointP:
@@ -368,11 +371,21 @@ def fold_lanes_plain(p, blk: int) -> PointP:
     return _chain_plain(ws, 1, mixed, every=False)
 
 
-def _fold_lanes_kernel(p, blk: int) -> PointP:
+def _fold_lanes_launch(p, blk: int, team: int) -> PointP:
     coords, mixed = _coords(p)
     G, n = coords[0].shape[1:]
-    return _kernel("fold_lanes", "ez_fold_lanes", coords, (G, blk), pre=(int(mixed),),
-                   post=(G, n // blk, blk))
+    chunks, lanes = n // blk, G * blk
+    out = _kernel("fold_lanes", "ez_fold_lanes", coords, (G, blk), pre=(int(mixed),),
+                  post=(G, chunks, blk, team))
+    if lanes:
+        build.WIDTHS.append(("fold_lanes", FQ.name, lanes, (11 if mixed else 12) * (chunks - 1)
+                             * lanes, (len(coords) * chunks + 3) * 32 * lanes))
+    return out
+
+
+def _fold_lanes_kernel(p, blk: int) -> PointP:
+    G = _coords(p)[0][0].shape[1]
+    return _fold_lanes_launch(p, blk, lane_team(G * blk))
 
 
 def fold_lanes(p, blk: int = 1024) -> PointP:
@@ -472,7 +485,10 @@ def dbl_pow2_plain(p: PointP, c: int) -> PointP:
 
 def _dbl_pow2_kernel(p: PointP, c: int) -> PointP:
     n = p.x.shape[1]
-    return _kernel("dbl_pow2", "ez_dbl_pow2", tuple(p), (n,), post=(n, c))
+    out = _kernel("dbl_pow2", "ez_dbl_pow2", tuple(p), (n,), post=(n, c))
+    if n:
+        build.WIDTHS.append(("dbl_pow2", FQ.name, n, 8 * c * n, 6 * 32 * n))
+    return out
 
 
 def dbl_pow2(p: PointP, c: int) -> PointP:
@@ -503,7 +519,11 @@ def horner_plain(v: PointP, c: int) -> PointP:
 
 def _horner_kernel(v: PointP, c: int) -> PointP:
     W, width = v.x.shape[1:]
-    return _kernel("horner", "ez_horner", tuple(v), (width,), post=(W, c, width))
+    out = _kernel("horner", "ez_horner", tuple(v), (width,), post=(W, c, width))
+    if width:
+        build.WIDTHS.append(("horner", FQ.name, width, W * (8 * c + 12) * width,
+                             3 * 32 * (W + 1) * width))
+    return out
 
 
 def horner_combine(v: PointP, c: int) -> PointP:

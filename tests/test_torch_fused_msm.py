@@ -191,20 +191,14 @@ def test_scan_packed_treats_the_pad_pair_as_identity():
     assert got == want
 
 
-def test_scan_packed_team_sizes():
-    """K4's threads per lane: 8 up to 4,096 lanes, 2 above, so that at k = 14
-    one column (3,328 lanes) takes 8 and two to eight (6,656-26,624) 2."""
-    teams = [pcurve.scan_packed_team(m) for m in (1, 1001, 3328, 4096, 4097, 6656, 26624)]
-    assert teams == [8, 8, 8, 8, 2, 2, 2]
-    assert all(t in pcurve.SCAN_TEAMS for t in teams)
-
-
-def test_scan_steps_team_sizes():
-    """K5's threads per lane: 8 up to 4,096 lanes, so that the block-total
-    prefix of a k = 14 MSM (104-832 lanes of 32 steps, 26-208 of 4) and the
-    projective MSM's scan of one column (3,328 lanes of 128) take 8, and its
-    scans of 2 and 8 columns (6,656 and 26,624 lanes) take 2."""
-    teams = [pcurve.scan_steps_team(m) for m in (1, 26, 104, 832, 3328, 4096, 4097, 6656,
-                                                 26624)]
-    assert teams == [8, 8, 8, 8, 8, 8, 2, 2, 2]
-    assert all(t in pcurve.SCAN_TEAMS for t in teams)
+@pytest.mark.parametrize("lanes, team", [(1, 8), (26, 8), (104, 8), (111, 8), (832, 8),
+                                         (1001, 8), (3328, 8), (4096, 8), (4097, 2),
+                                         (6656, 2), (13312, 2), (26624, 2)])
+def test_lane_team_sizes(lanes, team):
+    """Threads per lane of K4, K5 and K6: 8 up to 4,096 lanes, 2 above, the
+    limit each kernel's own H100 sweep put there. At k = 14 one column (3,328
+    lanes of K4's and K5's scans, 26 groups of 128 of K6's fold) and K5's
+    block-total prefix (26-832 lanes) take 8; two to eight columns
+    (6,656-26,624 lanes) take 2."""
+    assert pcurve.lane_team(lanes) == team
+    assert team in pcurve.SCAN_TEAMS

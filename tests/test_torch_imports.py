@@ -7,14 +7,16 @@
   mont_scan, K2 ntt_stages and its one-stage entry bfly, K3 point_add at
   each team size and its tree form point_reduce, K9 point_dbl, and the
   fused MSM's K4
-  scan_packed, K5 scan_steps and K6 fold_lanes in both variants, K7
-  dbl_pow2, K8 horner) raises when its kernel cannot be built, instead of
+  scan_packed, K5 scan_steps and K6 fold_lanes in both variants, K6 and K7
+  dbl_pow2 also at each team size, K8 horner) raises when its kernel
+  cannot be built, instead of
   falling back to the plain version; and a tensor on the card always takes
   the kernel route;
 * on the card a Fermat inversion is one launch and a batch inversion runs
   its scan blocks as single launches, not one per product; a transform is
   one K2 launch per pass, not per stage; the halving tree of
-  `reduce_pairwise` is one launch; K3's single add picks its team by width.
+  `reduce_pairwise` is one launch; K3's single add, K6 and K7 pick their
+  team by width, and every K1-K8 launch records its width (`build.WIDTHS`).
 
 No card is needed: the build is mocked, or replaced by a library that
 records its calls.
@@ -106,6 +108,9 @@ KERNEL_CALLS = {
     "fold_lanes_mixed": lambda: pcurve._fold_lanes_kernel(tuple(_grid(2, 256))[:2], 128),
     "dbl_pow2": lambda: pcurve._dbl_pow2_kernel(_points(), 3),
     "horner": lambda: pcurve._horner_kernel(_grid(3, 2), 3),
+    **{f"fold_lanes_{v}_team{t}": (lambda v=v, t=t: pcurve._fold_lanes_launch(
+        _grid(2, 256) if v == "complete" else tuple(_grid(2, 256))[:2], 128, t))
+       for v in ("complete", "mixed") for t in pcurve.SCAN_TEAMS},
 }
 
 PUBLIC_CALLS = {
@@ -290,3 +295,95 @@ def test_point_add_team_by_lanes(card, n, team):
     curve.add(p, p)
     assert card.calls == ["ez_point_add"]
     assert card.args[0][-3:-1] == (n, team)
+
+
+@pytest.mark.parametrize("groups, team", [(26, 8), (32, 8), (33, 2), (52, 2), (208, 2)])
+def test_fold_lanes_team_by_lanes(card, groups, team):
+    """K6 on the card over `groups` x 4 chunks of 128 lanes runs a team of 8
+    threads per lane up to 4,096 lanes (one column at k = 14: 26 groups,
+    3,328 lanes) and of 2 above (2-8 columns), the sides of the H100 sweep
+    (PERF.md)."""
+    assert pcurve.lane_team(groups * 128) == team
+    pcurve.fold_lanes(_grid(groups, 512), blk=128)
+    assert card.calls == ["ez_fold_lanes"]
+    assert card.args[0][0] == 0                          # complete adds
+    assert card.args[0][-5:-1] == (groups, 4, 128, team)
+
+
+@pytest.mark.parametrize("n, c", [(26, 9), (52, 9), (104, 9), (208, 9), (1001, 1)])
+def test_dbl_pow2_on_the_card_is_one_launch(card, n, c):
+    """K7 on the card runs all c doublings of every lane in one launch: at
+    the prove's 26-208 lanes with c = 9, and over 1,001 lanes with c = 1."""
+    pcurve.dbl_pow2(_points(n), c)
+    assert card.calls == ["ez_dbl_pow2"]
+    assert card.args[0][-3:-1] == (n, c)
+    assert build.LAUNCHES["dbl_pow2"] == 1
+
+
+def _msm_kernel_calls():
+    g = _grid(4, 3)                                      # (S, m) = (4, 3)
+    return {
+        "scan_packed": (lambda: pcurve.scan_packed_steps(g.x, g.y, _signs(4, 3)),
+                        (3, 11 * 3 * 3, (2 * 32 + 4 + 96) * 4 * 3)),
+        "scan_steps_complete": (lambda: pcurve.scan_steps(g), (3, 12 * 3 * 3, 192 * 4 * 3)),
+        "scan_steps_mixed": (lambda: pcurve.scan_steps((g.x, g.y)), (3, 11 * 3 * 3, 160 * 4 * 3)),
+        "fold_lanes_complete": (lambda: pcurve.fold_lanes(_grid(2, 256), blk=128),
+                                (256, 12 * 256, (3 * 2 + 3) * 32 * 256)),
+        "fold_lanes_mixed": (lambda: pcurve.fold_lanes(tuple(_grid(2, 256))[:2], blk=128),
+                             (256, 11 * 256, (2 * 2 + 3) * 32 * 256)),
+        "dbl_pow2": (lambda: pcurve.dbl_pow2(_points(5), 3), (5, 8 * 3 * 5, 192 * 5)),
+        "horner": (lambda: pcurve.horner_combine(_grid(3, 2), 3),
+                   (2, 3 * (8 * 3 + 12) * 2, 96 * 4 * 2)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_msm_kernel_calls()))
+def test_msm_kernel_launch_records_its_width(card, name):
+    """Each K4-K8 launch records (kernel, field, lanes, products, bytes) in
+    `build.WIDTHS`: lanes = point chains, products = the Montgomery products
+    the kernel runs (11 per mixed add, 12 per complete add, 8 per doubling),
+    bytes = each input read and each output written once; so the profile can
+    report the fused MSM's launches by width and their bound."""
+    call, want = _msm_kernel_calls()[name]
+    call()
+    kernel = name.replace("_complete", "").replace("_mixed", "")
+    assert list(build.WIDTHS) == [(kernel, "bn254_fq", *want)]
+    assert build.width_histogram() == {
+        f"{kernel}/bn254_fq": {f"2^{(want[0] - 1).bit_length()}": 1}}
+
+
+def test_profile_pairs_point_kernel_launches_with_device_events(monkeypatch):
+    """`tools/profile_torch_prove.py` pairs the i-th K4-K8 launch of a kernel
+    with the i-th device event of its name and sums device time and bound
+    (from the launch's bytes and products) per width; its `top` lists device
+    operations by total time, and past its first TOP those that `--match`
+    names."""
+    import sys
+    sys.path.insert(0, str(ROOT / "tools"))
+    import chip_smoke
+    import profile_torch_prove as prof
+
+    widths = [("fold_lanes", "bn254_fq", 3328, 12 * 3 * 3328, 9 * 32 * 3328),
+              ("dbl_pow2", "bn254_fq", 26, 8 * 9 * 26, 192 * 26),
+              ("fold_lanes", "bn254_fq", 26624, 12 * 3 * 26624, 9 * 32 * 26624)]
+    ops = [(10, 14000, "void (anonymous namespace)::fold_lanes_kernel<false, 8>(...)"),
+           (20, 16000, "void (anonymous namespace)::dbl_pow2_kernel<4>(...)"),
+           (30, 53000, "void (anonymous namespace)::fold_lanes_kernel<false, 2>(...)"),
+           (40, 1000, "elementwise_kernel")]
+    out = prof._widths(ops, widths)
+    fold = out["fold_lanes/bn254_fq"]
+    assert fold["2^12"]["launches"] == fold["2^15"]["launches"] == 1
+    assert fold["2^12"]["device_ms"] == pytest.approx(0.014)
+    assert fold["2^15"]["device_ms"] == pytest.approx(0.053)
+    assert fold["2^12"]["bound_ms"] == pytest.approx(chip_smoke.bound(
+        9 * 32 * 3328, chip_smoke.IMAD_PER_MONT_MUL * 12 * 3 * 3328)[0])
+    dbl = out["dbl_pow2/bn254_fq"]["2^5"]
+    assert dbl["gap_ms"] == pytest.approx(dbl["device_ms"] - dbl["bound_ms"])
+    assert not any(k.endswith("_unpaired") for k in out)
+    ops.append((50, 2000, "elementwise_kernel"))
+    monkeypatch.setattr(prof, "TOP", 1)
+    assert prof._top(ops, r"fold_lanes|dbl_pow2") == [
+        {"name": ops[2][2], "count": 1, "total_ms": pytest.approx(0.053)},
+        {"name": ops[1][2], "count": 1, "total_ms": pytest.approx(0.016)},
+        {"name": ops[0][2], "count": 1, "total_ms": pytest.approx(0.014)}]
+    assert [t["name"] for t in prof._top(ops)] == [ops[2][2]]

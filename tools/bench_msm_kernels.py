@@ -5,7 +5,7 @@
 
 Builds the kernels (printing ptxas' registers and spills), then runs the
 checks of `chip_smoke.py` named by `--only` (default `msm`): `msm`,
-`check_msm_kernels` (K4-K8 at the k = 14 main path's shapes, K4 and K5 at
+`check_msm_kernels` (K4-K8 at the k = 14 main path's shapes, K4-K6 at
 every team size); `ntt`, `check_ntt_stages` (K2: every pass of k = 1 .. 17,
 each whole transform of the prove and a sweep of its groups per block);
 `adds`, `check_point_adds` (K3's tree and its single add at every team

@@ -16,8 +16,10 @@ over two columns, each at a seeded choice of groups per block), K3 (the
 single add at each team size over a ragged lane count, and the tree
 `ez_point_reduce` at w = 128 over 3 groups and at w = 2, with identity
 lanes), K4 (at each team size, with pad pairs and a ragged last block), K5
-(both variants at each team size, with identities and a ragged last block)
-and K8 (edge shapes, identities only) on CPU tensors at tiny shapes against
+(both variants at each team size, with identities and a ragged last block),
+K6 (both variants at each team size, identities, a ragged last block, one
+chunk), K7 (c = 1 to 3, identities, ragged lanes) and K8
+(edge shapes, identities only) on CPU tensors at tiny shapes against
 their plain versions, bit-exact. It checks
 the kernels' logic (indices, teams, barriers, carries) and times nothing;
 what only the card can show -- that nvcc accepts the source, the PTX, the
@@ -230,6 +232,26 @@ def main() -> int:
             check(f"scan_steps mixed team={team} S={S} lanes={L}",
                   call("ez_scan_steps", list(Pa) + [None], (S, L), (L, S, team), pre=(1,)),
                   pcurve.scan_steps_plain(Pa))
+    for team in pcurve.SCAN_TEAMS:
+        for G, chunks, blk in ((3, 3, 37), (2, 1, 5), (1, 4, 70)):
+            mask = torch.zeros(G, chunks * blk, dtype=torch.bool)
+            mask[0, 0] = mask[G - 1, chunks * blk - 1] = True
+            mask[0, blk:2 * blk] = True
+            Pq = cs._set(cs._gather(P, idx(G, chunks * blk)), mask, ident)
+            Pa = cs._gather((ax, ay), idx(G, chunks * blk))
+            post = (G, chunks, blk, team)
+            check(f"fold_lanes complete team={team} groups={G} chunks={chunks} blk={blk}",
+                  call("ez_fold_lanes", list(Pq), (G, blk), post, pre=(0,)),
+                  pcurve.fold_lanes_plain(curve.PointP(*Pq), blk))
+            check(f"fold_lanes mixed team={team} groups={G} chunks={chunks} blk={blk}",
+                  call("ez_fold_lanes", list(Pa) + [None], (G, blk), post, pre=(1,)),
+                  pcurve.fold_lanes_plain(Pa, blk))
+    for n, c in ((37, 3), (70, 1), (3, 2)):
+        mask = torch.zeros(n, dtype=torch.bool)
+        mask[0] = mask[n - 1] = True
+        Q = cs._set(cs._gather(P, idx(n)), mask, ident)
+        check(f"dbl_pow2 lanes={n} c={c}", call("ez_dbl_pow2", list(Q), (n,), (n, c)),
+              pcurve.dbl_pow2_plain(curve.PointP(*Q), c))
     for W, c, C, everyone in ((4, 3, 3, False), (1, 1, 1, False), (3, 2, 2, True)):
         mask = torch.full((W, C), everyone)
         mask[0, 0] = True

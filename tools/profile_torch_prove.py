@@ -18,14 +18,20 @@ them, then one JSON line:
                   device, so this is the share a plain prove sees)
   phases          per prover phase (`prover._span` ranges): wall_s, busy_s,
                   device_ops
-  top             device operations by total time: name, count, total_ms
+  top             device operations by total time: name, count, total_ms;
+                  the first 15, and past them every one whose name matches
+                  `--match` (e.g. `fold_lanes|dbl_pow2` for K6 and K7)
   launches        kernel launches of the timed create_proof (`build.LAUNCHES`)
   point_launches  the point kernels' share of them (K3-K9)
   widths          K1 (its three forms: mont_mul, mont_pow, mont_scan), K2
-                  (ntt_stages) and K3 (point_add, and its tree form
-                  point_reduce) launches of the profiled create_proof per
-                  kernel, field and power-of-two width (`build.WIDTHS`;
-                  elements, for mont_scan rows x steps, for K3 lanes in),
+                  (ntt_stages), K3 (point_add, and its tree form
+                  point_reduce) and K4-K8 (scan_packed, scan_steps,
+                  fold_lanes, dbl_pow2, horner) launches of the profiled
+                  create_proof per kernel, field and power-of-two width
+                  (`build.WIDTHS`; elements, for mont_scan rows x steps,
+                  for K3 lanes in, for K4-K8 lanes: C x 3,328 for K4,
+                  C x 104 and C x 26 for K5, C x 3,328 for K6, C x 26 for
+                  K7 and C for K8 at k = 14 with C committed columns),
                   each with the device ms of those
                   launches (the i-th launch of a kernel is the i-th device
                   event of its name), their summed bound and the gap
@@ -41,6 +47,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import pathlib
+import re
 import sys
 import time
 from collections import defaultdict
@@ -55,22 +62,23 @@ import chip_smoke  # noqa: E402
 TOP = 15
 
 
-# bytes per element of a launch: K1 reads two operands and writes one; its
-# chain forms and a K2 pass read and write each element once (K2's twiddles,
-# at most half as many, left out, so its bound is a floor); K3 reads two
-# points and writes one per lane, its tree reads one point per partial (its
-# one output per group left out)
+# bytes per element of a K1-K3 launch: K1 reads two operands and writes one;
+# its chain forms and a K2 pass read and write each element once (K2's
+# twiddles, at most half as many, left out, so its bound is a floor); K3
+# reads two points and writes one per lane, its tree reads one point per
+# partial (its one output per group left out). K4-K8 record their bytes.
 BYTES_PER_ELEMENT = {"mont_mul": 96, "mont_pow": 64, "mont_scan": 64, "ntt_stages": 64,
                      "point_add": 288, "point_reduce": 96}
 # kernels compiled once per field, whose device names end in `<Fr>`/`<Fq>`
 PER_FIELD = ("mont_mul", "mont_pow", "mont_scan", "ntt_stages")
 
 
-def _bound_ms(kernel, n, products):
+def _bound_ms(kernel, n, products, nbytes=None):
     """`chip_smoke.bound` of one launch over n elements with `products`
-    Montgomery products."""
-    return chip_smoke.bound(BYTES_PER_ELEMENT[kernel] * n,
-                            chip_smoke.IMAD_PER_MONT_MUL * products)[0]
+    Montgomery products and `nbytes` moved (K1-K3: from BYTES_PER_ELEMENT)."""
+    if nbytes is None:
+        nbytes = BYTES_PER_ELEMENT[kernel] * n
+    return chip_smoke.bound(nbytes, chip_smoke.IMAD_PER_MONT_MUL * products)[0]
 
 
 def _widths(ops, widths):
@@ -81,18 +89,18 @@ def _widths(ops, widths):
     hist = build.width_histogram(widths)
     out = {key: {w: {"launches": c, "device_ms": 0.0, "bound_ms": 0.0} for w, c in row.items()}
            for key, row in hist.items()}
-    for kernel in BYTES_PER_ELEMENT:
-        mine = [(f, n, prods) for k, f, n, prods in widths if k == kernel]
+    for kernel in sorted({w[0] for w in widths}):
+        mine = [w[1:] for w in widths if w[0] == kernel]
         events = sorted((s, d, name) for s, d, name in ops if f"{kernel}_kernel" in name)
         if len(mine) != len(events) or kernel in PER_FIELD and any(
-                f"{'Fr' if f.endswith('fr') else 'Fq'}>" not in name
-                for (f, _, _), (_, _, name) in zip(mine, events)):
+                f"{'Fr' if w[0].endswith('fr') else 'Fq'}>" not in name
+                for w, (_, _, name) in zip(mine, events)):
             out[f"{kernel}_unpaired"] = f"{len(mine)} launches, {len(events)} device events"
             continue
-        for (field, n, prods), (_, ns, _) in zip(mine, events):
+        for (field, n, prods, *nbytes), (_, ns, _) in zip(mine, events):
             cell = out[f"{kernel}/{field}"][f"2^{(n - 1).bit_length()}"]
             cell["device_ms"] += ns / 1e6
-            cell["bound_ms"] += _bound_ms(kernel, n, prods)
+            cell["bound_ms"] += _bound_ms(kernel, n, prods, *nbytes)
     for row in out.values():
         for cell in row.values() if isinstance(row, dict) else ():
             cell["gap_ms"] = cell["device_ms"] - cell["bound_ms"]
@@ -121,19 +129,27 @@ def _breakdown(events, device_type, phase_names):
         phases[name] = {"wall_s": (hi - lo) / 1e9,
                         "busy_s": sum(d for _, d, _ in inside) / 1e9,
                         "device_ops": len(inside)}
+    busy = sum(d for _, d, _ in ops) / 1e9
+    return busy, phases, ops
+
+
+def _top(ops, match=None):
+    """Device operations `ops` (start, ns, name) by name, in order of total
+    time: the first TOP, then every later one whose name matches `match`."""
     by_name = defaultdict(lambda: [0, 0])
     for _, d, name in ops:
         by_name[name][0] += 1
         by_name[name][1] += d
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
-    busy = sum(d for _, d, _ in ops) / 1e9
-    return busy, phases, [{"name": name[:120], "count": c, "total_ms": ns / 1e6}
-                          for name, (c, ns) in top], ops
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    keep = ranked[:TOP] + [kv for kv in ranked[TOP:] if match and re.search(match, kv[0])]
+    return [{"name": name[:120], "count": c, "total_ms": ns / 1e6} for name, (c, ns) in keep]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k", type=int, default=chip_smoke.K)
+    ap.add_argument("--match", help="also list in `top` every device operation past "
+                    "the first 15 whose name matches this regular expression")
     args = ap.parse_args()
 
     import torch
@@ -166,12 +182,12 @@ def main() -> int:
     with torch.profiler.profile(activities=acts) as prof:
         profiled_wall = prove()
     widths = list(build.WIDTHS)
-    busy, phases, top, ops = _breakdown(prof.profiler.kineto_results.events(), DeviceType.CUDA,
-                                        set(prover.PHASE_SECONDS))
+    busy, phases, ops = _breakdown(prof.profiler.kineto_results.events(), DeviceType.CUDA,
+                                   set(prover.PHASE_SECONDS))
     chip_smoke.emit({"phase": "profile", "k": args.k, "wall_s": wall,
                      "profiled_wall_s": profiled_wall, "device_busy_s": busy,
                      "busy_share": busy / profiled_wall, "busy_share_of_wall": busy / wall,
-                     "phases": phases, "top": top, "launches": launches,
+                     "phases": phases, "top": _top(ops, args.match), "launches": launches,
                      "point_launches": sum(launches[k] for k in chip_smoke.POINT_KERNELS),
                      "widths": _widths(ops, widths),
                      "device": torch.cuda.get_device_name(0)})
