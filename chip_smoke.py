@@ -15,14 +15,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
               prove's 1 x 2^14, 8 x 2^14 and 16 x 2^17 with a sweep of its
               groups per block), K3 point add (at every team size and every
               width the prove launches it) and its tree form point_reduce
-              (G = 26 and 208 groups of 128), K9 point doubling, and the fused
+              (G = 26 and 208 groups of 128), K9 point doubling (at 1, 26,
+              2^13, 2^14 and 2^17 lanes, each at every team size), and the fused
               MSM's K4 packed signed scan, K5 point prefix scan and K6
               bucket fold in both variants, K7 2^c doubling, K8 Horner
               combine) against its plain PyTorch version on the card,
               bit-exact, on seeded inputs plus edge values (zeros for
               mont_pow, identities, the pad pair and both signs for K4), at
-              the main path's shapes (K1 also with its broadcast operand
-              forms; mont_pow in both fields at widths 1, 8 and 2^14;
+              the main path's shapes (K1 in both fields at 2^14 and 2^17,
+              dense and constant, and in every broadcast operand form;
+              mont_pow in both fields at widths 1, 8 and 2^14;
               mont_scan also at 1, 16 and 3 rows; K4 and K5 also over a
               ragged lane count and at every team size, K5 also at the
               projective fused MSM's 3,328-26,624 lanes of 128 steps; K6
@@ -251,60 +253,16 @@ def torch_index(arr, dev):
 
 def check_kernels(dev, rng):
     import torch
-    from ezkl_tpu_torch.fieldmath import limbs, curve
-    from ezkl_tpu_torch.fieldmath.spec import bn254_fr, bn254_fq
+    from ezkl_tpu_torch.fieldmath import curve
     from ezkl_tpu_torch.kernels import pcurve, build
 
-    FR, FQ = bn254_fr(), bn254_fq()
-    rows = {}
-
-    # K1 at both main-path widths, both fields
-    for spec in (FR, FQ):
-        for n in (1 << 14, 1 << 17):
-            a, b = field_inputs(spec, n, rng, dev)
-            b = b.contiguous()
-            kern = lambda x, y: limbs._mont_mul_kernel(spec, x, y)   # noqa: E731
-            plain = lambda x, y: limbs.mont_mul_plain(spec, x, y)    # noqa: E731
-            err = max_abs_err([kern(a, b)], [plain(a, b)])
-            row = dict(field=spec.name, n=n, max_abs_err=err, **timings(kern, [a, b], plain))
-            row["bound_ms"], row["bound_by"] = bound(3 * 32 * n, IMAD_PER_MONT_MUL * n)
-            emit({"phase": "kernel", "kernel": "mont_mul", **row})
-            if err:
-                raise AssertionError(f"mont_mul kernel != plain ({spec.name}, n={n})")
-            if spec is FR and n == 1 << 17:
-                rows["mont_mul"] = row
-
-    # K1's broadcast operand (read in place, `limbs.bcast_form`) in the forms
-    # the prover gives it, either operand side, against the plain version
-    n = 1 << 14
-    x = field_inputs(FR, 8 * n, rng, dev)[0].reshape(8, 8, n)
-    forms = {"constant": limbs.bcast_const(FR, 12345, 2, device=dev),
-             "row": field_inputs(FR, n, rng, dev)[0].reshape(8, 1, n),
-             "column": x[:, :, :1],
-             "expanded": limbs.ones_mont(FR, (8, n), dev),
-             "both": (x[:, :1, :], x[:, :, :1])}
-    for form, b in forms.items():
-        lhs, rhs = b if form == "both" else (x, b)
-        want = limbs.mont_mul_plain(FR, lhs, rhs)
-        err = max(max_abs_err([limbs.mont_mul(FR, lhs, rhs)], [want]),
-                  max_abs_err([limbs.mont_mul(FR, rhs, lhs)], [want]))
-        if err:
-            raise AssertionError(f"mont_mul kernel != plain (broadcast {form})")
-    n = 1 << 17
-    a = field_inputs(FR, n, rng, dev)[0]
-    c = limbs.bcast_const(FR, 12345, 1, device=dev)
-    emit({"phase": "kernel", "kernel": "mont_mul", "field": FR.name, "n": n,
-          "b": "constant", "broadcast_forms_checked": sorted(forms), "max_abs_err": 0,
-          "ms": device_ms(lambda x, y: limbs.mont_mul(FR, x, y), [a, c]),
-          "materialised_b_ms": device_ms(lambda x, y: limbs.mont_mul(FR, x, y),
-                                         [a, c.expand(8, n).contiguous()]),
-          "bound_ms": bound(2 * 32 * n, IMAD_PER_MONT_MUL * n)[0]})
-
+    rows = {"mont_mul": check_mont_mul(dev, rng)}
     rows.update(check_field_chains(dev, rng))
 
     rows.update(check_ntt_stages(dev, rng))
 
-    # K3 / K9 on projective multiples of G1 with nontrivial Z, plus edges
+    # K3 on projective multiples of G1 with nontrivial Z, plus edges, and K9
+    # on the same points against the group law
     for n in (1 << 14, 1 << 17):
         bits = torch_index(rng.integers(0, 2, size=(64, n)), dev).to(torch.int32)
         P = curve.scalar_mul(curve.generator((n,), dev), bits)
@@ -319,35 +277,117 @@ def check_kernels(dev, rng):
         P2 = curve.select_point(lanes == 3, ident, P)
         Q = curve.select_point(lanes == 3, ident, Q)
         P2, Q = P2.map(torch.Tensor.contiguous), Q.map(torch.Tensor.contiguous)
-        for name, inputs, kern, plain, muls in (
-                ("point_add", [*P2, *Q],
-                 lambda *t: pcurve._add_launch(t, pcurve.point_add_team(n)),
-                 lambda *t: pcurve.point_add_plain(curve.PointP(*t[:3]), curve.PointP(*t[3:])),
-                 12),
-                ("point_dbl", list(P2),
-                 lambda *t: pcurve._launch("point_dbl", "ez_point_dbl", t),
-                 lambda *t: pcurve.point_dbl_plain(curve.PointP(*t)), 8)):
-            nin = len(inputs)
-            err = max_abs_err(kern(*inputs), plain(*inputs))
-            row = dict(n=n, max_abs_err=err, **timings(kern, inputs, plain),
-                       **({"team": pcurve.point_add_team(n)} if name == "point_add" else {}))
-            row["bound_ms"], row["bound_by"] = bound((nin + 3) * 32 * n,
-                                                     muls * IMAD_PER_MONT_MUL * n)
-            emit({"phase": "kernel", "kernel": name, **row})
-            if err:
-                raise AssertionError(f"{name} kernel != plain (n={n})")
-            if n == 1 << 14:
-                rows[name] = row
+        row = run_kernel("point_add", lambda *t: pcurve._add_launch(t, pcurve.point_add_team(n)),
+                         lambda *t: pcurve.point_add_plain(curve.PointP(*t[:3]),
+                                                           curve.PointP(*t[3:])),
+                         [*P2, *Q], 9 * 32 * n, 12 * IMAD_PER_MONT_MUL * n, n=n,
+                         team=pcurve.point_add_team(n))
+        if n == 1 << 14:
+            rows["point_add"] = row
         # the edge lanes against the group law itself
         s = curve.decode_points(pcurve.point_add(P2, Q).map(lambda t: t[:, :4]))
         p0 = curve.decode_points(P.map(lambda t: t[:, :2]))
         d = curve.decode_points(pcurve.point_dbl(P).map(lambda t: t[:, 1:2]))
         if not (s[0] == p0[0] and s[1] == d[0] and s[2] is None and s[3] is None):
             raise AssertionError("point_add edge lanes wrong")
+    rows["point_dbl"] = check_point_dbl(dev, rng)
     rows.update(check_point_adds(dev, rng))
     rows.update(check_msm_kernels(dev, rng))
     build.reset_launches()        # comparison launches do not count
     return rows
+
+
+def check_mont_mul(dev, rng):
+    """K1 elementwise against its plain version, bit-exact. At the prove's
+    2^14 and 2^17 elements, in both fields: dense and constant operands
+    (timed), and every broadcast form (`limbs.bcast_form`), either operand
+    side. Returns the dense Fr row at 2^17."""
+    from ezkl_tpu_torch.fieldmath import limbs
+    from ezkl_tpu_torch.fieldmath.spec import bn254_fr, bn254_fq
+
+    mm = IMAD_PER_MONT_MUL
+    out = None
+    for spec in (bn254_fr(), bn254_fq()):
+        kern = lambda x, y, spec=spec: limbs._mont_mul_kernel(spec, x, y)   # noqa: E731
+        plain = lambda x, y, spec=spec: limbs.mont_mul_plain(spec, x, y)    # noqa: E731
+        for n in (1 << 14, 1 << 17):
+            a, b = field_inputs(spec, n, rng, dev)
+            b = b.contiguous()
+            c = limbs.bcast_const(spec, 12345, 1, device=dev)
+            row = run_kernel("mont_mul", kern, plain, [a, b], 3 * 32 * n, mm * n,
+                             field=spec.name, n=n, b="dense")
+            if spec.name == "bn254_fr" and n == 1 << 17:
+                out = row
+            run_kernel("mont_mul", kern, plain, [a, c], 2 * 32 * n + 32, mm * n, field=spec.name,
+                       n=n, b="constant")
+            # the broadcast operand read in place, in the forms the prover
+            # gives it
+            w = n // 8
+            x = field_inputs(spec, n, rng, dev)[0].reshape(8, 8, w)
+            forms = {"constant": limbs.bcast_const(spec, 12345, 2, device=dev),
+                     "row": field_inputs(spec, w, rng, dev)[0].reshape(8, 1, w),
+                     "column": x[:, :, :1],
+                     "expanded": limbs.ones_mont(spec, (8, w), dev),
+                     "both": (x[:, :1, :], x[:, :, :1])}
+            for form, y in forms.items():
+                lhs, rhs = y if form == "both" else (x, y)
+                want = plain(lhs, rhs)
+                for u, v in ((lhs, rhs), (rhs, lhs)):
+                    if max_abs_err([kern(u, v)], [want]):
+                        raise AssertionError(f"mont_mul kernel != plain (broadcast {form}, "
+                                             f"{spec.name}, n={n})")
+            emit({"phase": "kernel", "kernel": "mont_mul", "field": spec.name, "n": n,
+                  "broadcast_forms_checked": sorted(forms), "max_abs_err": 0})
+    return out
+
+
+# K9's widths: the ones its paths launch at k = 14 -- 1 and 26 lanes (the
+# unfused MSM's doublings of its C = 1 accumulator and of its C x W = 26
+# window sums) and 2^14 (`gen_srs`) -- and 2^13, the other side of
+# `pcurve.DBL_TEAM4_LANES`, and 2^17, which no path here launches (`gen_srs`
+# at k = 17 would), the width of the parent's K9 line
+DBL_LANES = (1, 26, 1 << 13, 1 << 14, 1 << 17)
+
+
+def dbl_inputs(P, n, dev, rng):
+    """n lanes of K9's input: points of the pool P at random, identity lanes
+    first, last (from 26 lanes) and ~5% at random. A list of 3 coordinates."""
+    import torch
+    from ezkl_tpu_torch.fieldmath import limbs
+    from ezkl_tpu_torch.fieldmath.spec import bn254_fq
+
+    zero = torch.zeros(8, dtype=torch.int32, device=dev)
+    ident = (zero, limbs.const(bn254_fq(), 1, device=dev), zero)
+    mask = torch_index(rng.random(n) < 0.05, dev).bool()
+    if n > 1:
+        mask[0] = mask[-1] = True
+    idx = torch_index(rng.integers(0, P.x.shape[1], size=n), dev)
+    return list(_set(_gather(P, idx), mask, ident))
+
+
+def check_point_dbl(dev, rng):
+    """K9 against its plain version, bit-exact, on multiples of G1 with
+    nontrivial Z and identity lanes (first, last and ~5% at random, from 26
+    lanes): at every width of `DBL_LANES`, one `team_sweep` line per team
+    size of `pcurve.DBL_TEAMS`, then with the team `pcurve.dbl_team` picks,
+    timed. Returns the row at 2^14."""
+    from ezkl_tpu_torch.fieldmath import curve
+    from ezkl_tpu_torch.kernels import pcurve
+
+    P, _ = _pool(dev, rng)
+    out = None
+    for n in DBL_LANES:
+        inputs = dbl_inputs(P, n, dev, rng)
+        plain = lambda *t: pcurve.point_dbl_plain(curve.PointP(*t))   # noqa: E731
+        nbytes, imad = 6 * 32 * n, 8 * IMAD_PER_MONT_MUL * n
+        team_sweep("point_dbl", lambda team: lambda *t: pcurve._dbl_launch(t, team),
+                   pcurve.DBL_TEAMS, inputs, plain(*inputs), nbytes, imad, GRAPH_REPS, lanes=n)
+        team = pcurve.dbl_team(n)
+        row = run_kernel("point_dbl", lambda *t: pcurve._dbl_launch(t, team), plain, inputs,
+                         nbytes, imad, lanes=n, team=team)
+        if n == 1 << 14:
+            out = row
+    return out
 
 
 # The prove's transforms at k = 14: 2^14 points, one column (the iNTTs of
@@ -960,7 +1000,7 @@ def main() -> int:
          "shape": {k: v for k, v in rows[name].items()
                    if k in ("field", "n", "rows", "lanes", "steps", "groups", "chunks", "blk",
                             "c", "windows", "width", "columns", "team", "variant",
-                            "exponent", "k", "passes", "w")}}
+                            "exponent", "k", "passes", "w", "b")}}
         for name, (src, rep) in KERNEL_META.items()],
         "create_proof_point_dbl_launches": launches["point_dbl"],
         "unfused_msm_point_dbl_launches": unfused_launches["point_dbl"]})

@@ -94,33 +94,6 @@ __device__ __forceinline__ Fe sub_if_ge(const Fe& a, M m) {
   return r;
 }
 
-// a + m limb by limb, carry out of the top dropped (the callers' sums fit).
-template <class M>
-__device__ __forceinline__ Fe add_limbs(const Fe& a, M m) {
-  Fe r;
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    c += (uint64_t)a.v[i] + m(i);
-    r.v[i] = (uint32_t)c;
-    c >>= 32;
-  }
-  return r;
-}
-
-// a - b, returning the borrow out of the top limb.
-__device__ __forceinline__ Fe sub_limbs(const Fe& a, const Fe& b, uint32_t& borrow) {
-  Fe d;
-  borrow = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    uint64_t x = (uint64_t)a.v[i] - b.v[i] - borrow;
-    d.v[i] = (uint32_t)x;
-    borrow = (uint32_t)(x >> 63);
-  }
-  return d;
-}
-
 // canonical (< p) from a value < 2p
 template <class F>
 __device__ __forceinline__ Fe reduce(const Fe& a) {
@@ -163,7 +136,7 @@ __device__ __forceinline__ Fe mul_lazy(const Fe& a, const Fe& b) {
   return r;
 }
 
-// ---- the teams' arithmetic on the carry flag -------------------------------
+// ---- arithmetic on the carry flag (the teams', K1's and K2's) -------------
 //
 // `mul_cc` is the CIOS of `mul_lazy` -- the same m per row, so the same
 // words -- written with PTX's carry-chained multiply-adds: a row is four
@@ -173,9 +146,9 @@ __device__ __forceinline__ Fe mul_lazy(const Fe& a, const Fe& b) {
 // each step an IMAD or IMAD.HI and an IADD3.X that keeps the flag in a
 // predicate; in K4's teams of two it ran 12-16% faster than `mul_lazy`, in K8
 // within 3% of it (PERF.md). `add2p_cc`, `sub2p_cc`, `xb3_cc` and
-// `reduce_cc` are `add2p`, `sub2p`, `xb3` and `reduce` the same way, at one
-// instruction a word per chain where the 64-bit emulation of the carry in
-// those takes about three.
+// `reduce_cc` are the lazy add, sub, x * 9 and the final reduction the same
+// way, at one instruction a word per chain where a 64-bit emulation of the
+// carry takes about three.
 //
 // Each helper below is one `asm volatile` statement, so the statements keep
 // their order and the flag flows from one to the next. Off the device (the
@@ -347,9 +320,58 @@ __device__ __forceinline__ Fe mul_cc(const Fe& a, const Fe& b) {
   return r;
 }
 
-// The lazy add, sub and x * 9 of the teams (< 2p in, < 2p out) and their
-// final reduction, the values of `add2p`, `sub2p`, `xb3` and `reduce` on the
-// carry flag: one instruction a word for each chain.
+// t[0..8] += x * y[0..7] as mad_row, each word product one 64-bit multiply
+// (IMAD.WIDE.U32), its low halves added by one carry chain and its high
+// halves by another
+__device__ __forceinline__ void mad_row_w(uint32_t (&t)[9], uint32_t x, const uint32_t (&y)[8]) {
+  uint32_t lo[8], hi[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint64_t p = (uint64_t)y[j] * x;
+    lo[j] = (uint32_t)p;
+    hi[j] = (uint32_t)(p >> 32);
+  }
+  uint32_t cf = 0;
+  t[0] = add_cc(t[0], lo[0], cf);
+#pragma unroll
+  for (int j = 1; j < 8; ++j) t[j] = addc_cc(t[j], lo[j], cf);
+  t[8] = addc(t[8], 0u, cf);
+  t[1] = add_cc(t[1], hi[0], cf);
+#pragma unroll
+  for (int j = 1; j < 7; ++j) t[j + 1] = addc_cc(t[j + 1], hi[j], cf);
+  t[8] = addc(t[8], hi[7], cf);
+}
+
+// `mul_cc` with the rows of `mad_row_w`: the same CIOS and words, 496 SASS
+// instructions in K1 against 624, where ptxas makes each `mad_row` step an
+// IMAD and an IMAD.HI. Where many independent products fill the card (K1)
+// it ran faster than `mul_cc`; in the teams' short dependent levels
+// `mul_cc` stays (PERF.md).
+template <class F>
+__device__ __forceinline__ Fe mul_wide(const Fe& a, const Fe& b) {
+  uint32_t p[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) p[j] = F::p(j);
+  uint32_t t[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mad_row_w(t, b.v[i], a.v);
+    mad_row_w(t, t[0] * F::INV, p);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = t[j + 1];
+    t[8] = 0;
+  }
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = t[j];
+  return r;
+}
+
+// The lazy add, sub and x * 9 (< 2p in, < 2p out) and the final reduction,
+// the values of the TPU kernels' `_add`, `_sub`, `_xb3` and `_canon`
+// (ezkl_tpu/kernels/pcurve.py:41-70): one instruction a word for each chain.
 template <class F>
 __device__ __forceinline__ Fe add2p_cc(const Fe& a, const Fe& b) {
   uint32_t cf = 0, s[8], d[8];
@@ -404,83 +426,6 @@ __device__ __forceinline__ Fe xb3_cc(const Fe& a) {
   return add2p_cc<F>(t8, a);
 }
 
-// ---- canonical domain (< p in, < p out) -----------------------------------
-
-template <class F>
-__device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
-  return reduce<F>(mul_lazy<F>(a, b));
-}
-
-template <class F>
-__device__ __forceinline__ Fe add(const Fe& a, const Fe& b) {
-  Fe s = add_limbs(a, [&](int i) { return b.v[i]; });  // < 2p < 2^256
-  return reduce<F>(s);
-}
-
-template <class F>
-__device__ __forceinline__ Fe sub(const Fe& a, const Fe& b) {
-  uint32_t borrow;
-  Fe d = sub_limbs(a, b, borrow);
-  Fe f = add_limbs(d, [](int i) { return F::p(i); });
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) r.v[i] = borrow ? f.v[i] : d.v[i];
-  return r;
-}
-
-// ---- lazy domain (< 2p in, < 2p out), as pcurve.py:41-62 -------------------
-
-template <class F>
-__device__ __forceinline__ Fe add2p(const Fe& a, const Fe& b) {
-  Fe s = add_limbs(a, [&](int i) { return b.v[i]; });  // < 4p < 2^256
-  return sub_if_ge(s, [](int i) { return F::p2(i); });
-}
-
-template <class F>
-__device__ __forceinline__ Fe sub2p(const Fe& a, const Fe& b) {
-  uint32_t borrow;
-  Fe d = sub_limbs(a, b, borrow);
-  Fe f = add_limbs(d, [](int i) { return F::p2(i); });
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) r.v[i] = borrow ? f.v[i] : d.v[i];
-  return r;
-}
-
-// x * 3b = x * 9 by a doubling chain (9 = 8 + 1), as pcurve._xb3
-template <class F>
-__device__ __forceinline__ Fe xb3(const Fe& a) {
-  Fe t2 = add2p<F>(a, a);
-  Fe t4 = add2p<F>(t2, t2);
-  Fe t8 = add2p<F>(t4, t4);
-  return add2p<F>(t8, a);
-}
-
-// RCB15 algorithm 9 (a = 0, b3 = 9), the schedule of pcurve._dbl_l.
-template <class F>
-__device__ __forceinline__ void dbl(const Fe& X, const Fe& Y, const Fe& Z,
-                                    Fe& X3, Fe& Y3, Fe& Z3) {
-  Fe t0 = mul_lazy<F>(Y, Y);
-  Z3 = add2p<F>(t0, t0);
-  Z3 = add2p<F>(Z3, Z3);
-  Z3 = add2p<F>(Z3, Z3);
-  Fe t1 = mul_lazy<F>(Y, Z);
-  Fe t2 = mul_lazy<F>(Z, Z);
-  t2 = xb3<F>(t2);
-  X3 = mul_lazy<F>(t2, Z3);
-  Y3 = add2p<F>(t0, t2);
-  Z3 = mul_lazy<F>(t1, Z3);
-  t1 = add2p<F>(t2, t2);
-  t2 = add2p<F>(t1, t2);
-  t0 = sub2p<F>(t0, t2);
-  Y3 = mul_lazy<F>(t0, Y3);
-  Y3 = add2p<F>(X3, Y3);
-  t1 = mul_lazy<F>(X, Y);
-  X3 = mul_lazy<F>(t0, t1);
-  X3 = add2p<F>(X3, X3);
-}
-
-
 // ---- teams: T threads of one warp carry one point chain -------------------
 //
 // RCB15's formulas have their products in two levels of independent
@@ -495,8 +440,8 @@ __device__ __forceinline__ void dbl(const Fe& X, const Fe& Y, const Fe& Z,
 // ceil(K1 / T) + ceil(K2 / T) products instead of K1 + K2; the adds run in
 // all T threads. Every product keeps the lazy contract (< 2p in, < 2p out)
 // and the values are those of RCB15's schedules as the plain versions
-// run them (`kernels/pcurve.py`: `_complete_add_w`, `_mixed_add_w`, `_dbl_w`;
-// `dbl` above), so the canonical outputs equal theirs.
+// run them (`kernels/pcurve.py`: `_complete_add_w`, `_mixed_add_w`,
+// `_dbl_w`), so the canonical outputs equal theirs.
 //
 // Slots: level 1 of every formula uses half 0, level 2 half 1. A thread
 // writes half h only after the team's barrier of the level in between,
@@ -504,6 +449,14 @@ __device__ __forceinline__ void dbl(const Fe& X, const Fe& Y, const Fe& Z,
 // per level suffices.
 
 constexpr int kSlots = 8;  // per half: a level's K products plus the idle ranks' writes
+
+// Threads per block of a kernel of teams of T: 128 for teams of 2, one
+// warp for teams of 4 and 8, so that a few thousand lanes still spread
+// over the 132 SMs (measured for K3, K4 and K9, PERF.md).
+template <int T>
+__host__ __device__ constexpr int team_block() {
+  return T == 2 ? 128 : 32;
+}
 
 template <int T>
 struct Team {
@@ -636,7 +589,7 @@ __device__ __forceinline__ void team_mixed_add(const Team<T>& tm, const Fe& X1, 
   team_add_tail<F>(tm, t0x3, sub2p_cc<F>(t1, t2), t3, t4, y3, z3, X3, Y3, Z3);
 }
 
-// RCB15 alg. 9 by a team: the values of `dbl`.
+// RCB15 alg. 9 by a team: the values of `_dbl_w`.
 template <class F, int T>
 __device__ __forceinline__ void team_dbl(const Team<T>& tm, const Fe& X, const Fe& Y, const Fe& Z,
                                          Fe& X3, Fe& Y3, Fe& Z3) {
@@ -673,6 +626,39 @@ __device__ __forceinline__ void team_store(const Team<T>& tm, uint32_t* __restri
       if (tm.rank == u) w = a.v[q + u];
     if (q + tm.rank < 8) base[(q + tm.rank) * n + j] = w;
   }
+}
+
+// Lane j of (8, stride) point arrays, reduced to canonical, each thread of
+// the team storing its limbs.
+template <int T>
+__device__ __forceinline__ void team_store_point(const Team<T>& tm, uint32_t* __restrict__ ox,
+                                                 uint32_t* __restrict__ oy,
+                                                 uint32_t* __restrict__ oz, long long stride,
+                                                 long long j, const Fe& X, const Fe& Y,
+                                                 const Fe& Z) {
+  team_store(tm, ox, stride, j, reduce_cc<Fq>(X));
+  team_store(tm, oy, stride, j, reduce_cc<Fq>(Y));
+  team_store(tm, oz, stride, j, reduce_cc<Fq>(Z));
+}
+
+// K7's and K9's lane: c >= 1 doublings (alg. 9) of point j of the (8, n)
+// arrays x, y, z by the team, stored once.
+template <int T>
+__device__ __forceinline__ void team_dbl_lane(const Team<T>& tm, const uint32_t* __restrict__ x,
+                                              const uint32_t* __restrict__ y,
+                                              const uint32_t* __restrict__ z,
+                                              uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                                              uint32_t* __restrict__ oz, long long n, long long j,
+                                              int c) {
+  Fe X = load(x, n, j), Y = load(y, n, j), Z = load(z, n, j);
+  for (int k = 0; k < c; ++k) {
+    Fe X3, Y3, Z3;
+    team_dbl<Fq>(tm, X, Y, Z, X3, Y3, Z3);
+    X = X3;
+    Y = Y3;
+    Z = Z3;
+  }
+  team_store_point(tm, ox, oy, oz, n, j, X, Y, Z);
 }
 
 }  // namespace bn254

@@ -12,9 +12,13 @@
 //
 // Bound on the H100: compute. An add reads 6 x 32 and writes 3 x 32 bytes per
 // lane but runs 12 Montgomery products (12 x 264 32-bit multiply-adds) plus
-// ~26 lazy adds; a doubling runs 8 products over 6 x 32 bytes. K9: one thread
-// per lane with every coordinate and temporary in registers (80 registers, no
-// spills), limb-major coalesced loads and stores. The fused MSM launches K3
+// ~26 lazy adds; a doubling runs 8 products over 6 x 32 bytes. K9 runs at
+// 2^k lanes in `gen_srs` (2^14 at k = 14) and at 26 and 1 lanes in the
+// unfused MSM's doublings: there the card idles and a doubling's chain of
+// 8 products sets the time. So K9 runs `team_dbl_lane` (bn254.cuh, shared
+// with K7) on a team of 4 threads per lane up to 2^13 lanes (one warp a
+// block) and of 2 above (blocks of 128), picked by `pcurve.dbl_team` from
+// the H100 sweep (PERF.md). The fused MSM launches K3
 // at 26 to ~10^5 lanes, one add deep, where one thread's chain of 12
 // dependent products, not the arithmetic, sets the time: the add runs on a
 // team of threads (bn254.cuh, "teams": each level of independent products
@@ -39,16 +43,6 @@ using namespace bn254;
 
 namespace {
 
-constexpr int kThreads = 256;
-
-// Threads per block of the single add with T threads per lane: teams of 2
-// in blocks of 128, teams of 8 in blocks of 32 (4 lanes a block), as K4 and
-// K5 (msm.cu).
-template <int T>
-__host__ __device__ constexpr int add_block() {
-  return T == 2 ? 128 : 32;
-}
-
 // ez_point_reduce: partials per group held in shared memory, and the teams
 // of 8 that run each level's adds, 32 to a block
 constexpr int kTreeMax = 256;
@@ -57,13 +51,13 @@ constexpr int kTreeThreads = 256;
 constexpr int kTreeTeams = kTreeThreads / kTreeTeam;
 
 template <int T>
-__global__ void __launch_bounds__(add_block<T>())
+__global__ void __launch_bounds__(team_block<T>())
     point_add_kernel(const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
                      const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
                      const uint32_t* __restrict__ y2, const uint32_t* __restrict__ z2,
                      uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
                      uint32_t* __restrict__ oz, long long n) {
-  constexpr int kTeams = add_block<T>() / T;
+  constexpr int kTeams = team_block<T>() / T;
   __shared__ TeamSlots<T, kTeams> slots;
   const long long j = (long long)blockIdx.x * kTeams + threadIdx.x / T;
   if (j >= n) return;  // the whole team: j is the same in its threads
@@ -128,28 +122,36 @@ __global__ void __launch_bounds__(kTreeThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K9: one doubling per lane of (8, n), a team of T threads per lane,
+// team_block<T>() / T lanes per block.
+template <int T>
+__global__ void __launch_bounds__(team_block<T>())
     point_dbl_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                      const uint32_t* __restrict__ z, uint32_t* __restrict__ ox,
                      uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, long long n) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  Fe X3, Y3, Z3;
-  dbl<Fq>(load(x, n, j), load(y, n, j), load(z, n, j), X3, Y3, Z3);
-  store(ox, n, j, reduce<Fq>(X3));
-  store(oy, n, j, reduce<Fq>(Y3));
-  store(oz, n, j, reduce<Fq>(Z3));
+  constexpr int kTeams = team_block<T>() / T;
+  __shared__ TeamSlots<T, kTeams> slots;
+  const long long j = (long long)blockIdx.x * kTeams + threadIdx.x / T;
+  if (j >= n) return;  // the whole team: j is the same in its threads
+  team_dbl_lane(make_team(slots), x, y, z, ox, oy, oz, n, j, 1);
 }
 
-inline unsigned blocks_for(long long n, int per_block = kThreads) {
+inline unsigned blocks_for(long long n, int per_block) {
   return (unsigned)((n + per_block - 1) / per_block);
+}
+
+template <int T>
+void launch_dbl(const uint32_t* x, const uint32_t* y, const uint32_t* z, uint32_t* ox,
+                uint32_t* oy, uint32_t* oz, long long n, cudaStream_t s) {
+  point_dbl_kernel<T><<<blocks_for(n, team_block<T>() / T), team_block<T>(), 0, s>>>(
+      x, y, z, ox, oy, oz, n);
 }
 
 template <int T>
 void launch_add(const uint32_t* x1, const uint32_t* y1, const uint32_t* z1, const uint32_t* x2,
                 const uint32_t* y2, const uint32_t* z2, uint32_t* ox, uint32_t* oy,
                 uint32_t* oz, long long n, cudaStream_t s) {
-  point_add_kernel<T><<<blocks_for(n, add_block<T>() / T), add_block<T>(), 0, s>>>(
+  point_add_kernel<T><<<blocks_for(n, team_block<T>() / T), team_block<T>(), 0, s>>>(
       x1, y1, z1, x2, y2, z2, ox, oy, oz, n);
 }
 
@@ -180,10 +182,16 @@ extern "C" int ez_point_reduce(const uint32_t* x, const uint32_t* y, const uint3
   return (int)cudaGetLastError();
 }
 
+// team: threads per lane, 2 or 4 (`pcurve.dbl_team` chooses)
 extern "C" int ez_point_dbl(const uint32_t* x, const uint32_t* y, const uint32_t* z,
-                            uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n,
+                            uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n, int team,
                             void* stream) {
-  point_dbl_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      x, y, z, ox, oy, oz, n);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (team == 2)
+    launch_dbl<2>(x, y, z, ox, oy, oz, n, s);
+  else if (team == 4)
+    launch_dbl<4>(x, y, z, ox, oy, oz, n, s);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -24,12 +24,26 @@
 // `bfly`), which ran one radix-2 stage (a + b*w, a - b*w) per launch: it runs
 // r consecutive stages of a bit-reversed-input DIT transform in one launch.
 //
-// Bound on the H100: ez_mont_mul is a memory-bound stream at large n: it
-// moves 3 x 32 bytes per element against 264 32-bit multiply-adds (8x8 words
-// for the product, 8x8 for the reduction, two IMADs per 64-bit product),
-// which the SMs retire faster than HBM delivers 96 bytes. Design: one thread
-// per element, limbs in registers, limb-major loads that coalesce across a
-// warp.
+// Bound on the H100: ez_mont_mul moves 3 x 32 bytes per element against
+// 264 32-bit multiply-adds, so the bytes bound counts; but with its operands
+// in L2 it still takes 1.4x that bound at 2^17 elements: the product's ~500
+// instructions, 128 of them high halves of 32 x 32-bit products, set the
+// pace beside HBM, and at the prove's 2^14 the latency of one load ->
+// product -> store does. Design: one element per thread, kMontMulThreads =
+// 64 a block, so that 2^14 elements still reach every SM (64, 128 and 256
+// threads tied in the H100 sweep, PERF.md); the product by `mul_wide`
+// (64-bit word products whose halves two carry-flag chains add: 496 SASS
+// instructions against the 624 of `mul_cc`, and faster at both widths in
+// the H100 sweep) and `reduce_cc`; limb-major accesses that coalesce across
+// a warp. b's broadcast form is a template parameter that the entry picks
+// from (n, b_n, b_rep) (bcast.cuh): dense (b_n = n), constant (b_n = 1:
+// every thread reads the same 8 words), row (b_rep = 1: j mod b_n) and
+// general ((j / b_rep) mod b_n). Indices are 32-bit (n < 2^31), and each
+// division by b_n or b_rep is a multiply-high by a magic number the entry
+// computes on the host: the SM has no integer divider.
+// Two or four elements per thread (vector accesses) and a grid-stride loop
+// that loads the next element before the product lost at both widths
+// (PERF.md).
 //
 // A transform of 2^k points is k stages of one product per pair: as one
 // launch per stage it read and wrote the whole array k times, and at 2^14 a
@@ -65,13 +79,16 @@
 
 #include <cuda_runtime.h>
 
+#include "bcast.cuh"
 #include "bn254.cuh"
 
+using namespace bcast;
 using namespace bn254;
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMontMulThreads = 64;
 constexpr int kChainThreads = 32;
 // elements of ez_ntt_stages' tile: 32 KB of shared memory; 2^10, the largest
 // group of stages one launch runs
@@ -92,14 +109,15 @@ struct PowSchedule {
   int windows, first, trailing;
 };
 
-template <class F>
-__global__ void __launch_bounds__(kThreads)
+// out[j] = a[j] * b[(j / rep) % period], one element per thread; n < 2^31.
+template <int Form, class F>
+__global__ void __launch_bounds__(kMontMulThreads)
     mont_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                    uint32_t* __restrict__ out, long long n, long long b_n, long long b_rep) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+                    uint32_t* __restrict__ out, uint32_t n, Divisor period, Divisor rep) {
+  const uint32_t j = blockIdx.x * kMontMulThreads + threadIdx.x;
   if (j >= n) return;
-  const long long jb = (b_n == n && b_rep == 1) ? j : (j / b_rep) % b_n;
-  store(out, n, j, mul<F>(load(a, n, j), load(b, b_n, jb)));
+  const Fe y = load(b, period.d, b_index<Form>(j, period, rep));
+  store(out, n, j, reduce_cc<F>(mul_wide<F>(load(a, n, j), y)));
 }
 
 // Stages s0+1 .. s0+r over x: (8, total) = (8, cols, 2^k), into out (which
@@ -210,16 +228,42 @@ inline unsigned blocks_for(long long n, int threads = kThreads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+template <int Form, class F>
+void launch_mul(const uint32_t* a, const uint32_t* b, uint32_t* out, uint32_t n,
+                const Divisor& period, const Divisor& rep, cudaStream_t s) {
+  mont_mul_kernel<Form, F><<<blocks_for(n, kMontMulThreads), kMontMulThreads, 0, s>>>(
+      a, b, out, n, period, rep);
+}
+
+template <class F>
+void launch_mul_form(Form form, const uint32_t* a, const uint32_t* b, uint32_t* out, uint32_t n,
+                     const Divisor& period, const Divisor& rep, cudaStream_t s) {
+  if (form == kDense)
+    launch_mul<kDense, F>(a, b, out, n, period, rep, s);
+  else if (form == kConst)
+    launch_mul<kConst, F>(a, b, out, n, period, rep, s);
+  else if (form == kRow)
+    launch_mul<kRow, F>(a, b, out, n, period, rep, s);
+  else
+    launch_mul<kGeneral, F>(a, b, out, n, period, rep, s);
+}
+
 }  // namespace
 
 // field: 0 = Fr, 1 = Fq. Every entry returns cudaGetLastError() after launch.
+
+// 1 <= n < 2^31; b is (8, b_n), read at (j / b_rep) % b_n, b_n * b_rep <= n.
 extern "C" int ez_mont_mul(int field, const uint32_t* a, const uint32_t* b, uint32_t* out,
                            long long n, long long b_n, long long b_rep, void* stream) {
+  if (n < 1 || n >= (1LL << 31) || b_n < 1 || b_rep < 1 || b_n * b_rep > n)
+    return (int)cudaErrorInvalidValue;
+  const Form form = form_of(n, b_n, b_rep);
+  const Divisor period = divisor((uint32_t)b_n), rep = divisor((uint32_t)b_rep);
   cudaStream_t s = (cudaStream_t)stream;
   if (field == 0)
-    mont_mul_kernel<Fr><<<blocks_for(n), kThreads, 0, s>>>(a, b, out, n, b_n, b_rep);
+    launch_mul_form<Fr>(form, a, b, out, (uint32_t)n, period, rep, s);
   else
-    mont_mul_kernel<Fq><<<blocks_for(n), kThreads, 0, s>>>(a, b, out, n, b_n, b_rep);
+    launch_mul_form<Fq>(form, a, b, out, (uint32_t)n, period, rep, s);
   return (int)cudaGetLastError();
 }
 

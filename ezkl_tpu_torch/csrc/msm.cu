@@ -59,15 +59,6 @@ using namespace bn254;
 
 namespace {
 
-// Threads per block of K4, K5 and K6 with teams of T: blocks of 4 lanes for
-// teams of 8, so that a few thousand lanes still spread evenly over the 132
-// SMs, and of 64 lanes for teams of 2 (block sizes measured for K4, PERF.md;
-// K5 and K6 take the same).
-template <int T>
-__host__ __device__ constexpr int team_block() {
-  return T == 8 ? 32 : 128;
-}
-constexpr int kWarp = 32;
 // K7's team: alg. 9 has two levels of 4 products, so teams of 4 have the
 // critical path of teams of 8 with half the threads (teams of 8 measured as
 // fast, of 2 twice as slow; PERF.md).
@@ -104,17 +95,6 @@ __device__ __forceinline__ bool is_pad_pair(const Fe& x, const Fe& y) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) pad &= (x.v[i] == 0u) & (y.v[i] == Fq::one(i));
   return pad;
-}
-
-template <int T>
-__device__ __forceinline__ void team_store_point(const Team<T>& tm, uint32_t* __restrict__ ox,
-                                                 uint32_t* __restrict__ oy,
-                                                 uint32_t* __restrict__ oz, long long stride,
-                                                 long long j, const Fe& X, const Fe& Y,
-                                                 const Fe& Z) {
-  team_store(tm, ox, stride, j, reduce_cc<Fq>(X));
-  team_store(tm, oy, stride, j, reduce_cc<Fq>(Y));
-  team_store(tm, oz, stride, j, reduce_cc<Fq>(Z));
 }
 
 // K5: inputs and outputs step-major (8, S, m); a team of T threads per lane,
@@ -253,24 +233,15 @@ __global__ void __launch_bounds__(team_block<T>())
 
 // K7: (8, n) -> (8, n), c >= 1 doublings; a team of kDblTeam threads per
 // lane, a warp of 32 / kDblTeam teams per block.
-__global__ void __launch_bounds__(kWarp)
+__global__ void __launch_bounds__(team_block<kDblTeam>())
     dbl_pow2_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                     const uint32_t* __restrict__ z, uint32_t* __restrict__ ox,
                     uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, long long n, int c) {
-  constexpr int kTeams = kWarp / kDblTeam;
+  constexpr int kTeams = team_block<kDblTeam>() / kDblTeam;
   __shared__ TeamSlots<kDblTeam, kTeams> slots;
   const long long j = (long long)blockIdx.x * kTeams + threadIdx.x / kDblTeam;
   if (j >= n) return;  // the whole team
-  const Team<kDblTeam> tm = make_team(slots);
-  Fe X = load(x, n, j), Y = load(y, n, j), Z = load(z, n, j);
-  for (int k = 0; k < c; ++k) {
-    Fe X3, Y3, Z3;
-    team_dbl<Fq>(tm, X, Y, Z, X3, Y3, Z3);
-    X = X3;
-    Y = Y3;
-    Z = Z3;
-  }
-  team_store_point(tm, ox, oy, oz, n, j, X, Y, Z);
+  team_dbl_lane(make_team(slots), x, y, z, ox, oy, oz, n, j, c);
 }
 
 // K8: v (8, W, width), MSB window first -> (8, width); one team of
@@ -387,7 +358,8 @@ extern "C" int ez_fold_lanes(int mixed, const uint32_t* x, const uint32_t* y, co
 
 extern "C" int ez_dbl_pow2(const uint32_t* x, const uint32_t* y, const uint32_t* z, uint32_t* ox,
                            uint32_t* oy, uint32_t* oz, long long n, int c, void* stream) {
-  dbl_pow2_kernel<<<blocks_for(n, kWarp / kDblTeam), kWarp, 0, (cudaStream_t)stream>>>(
+  constexpr int kBlock = team_block<kDblTeam>();
+  dbl_pow2_kernel<<<blocks_for(n, kBlock / kDblTeam), kBlock, 0, (cudaStream_t)stream>>>(
       x, y, z, ox, oy, oz, n, c);
   return (int)cudaGetLastError();
 }

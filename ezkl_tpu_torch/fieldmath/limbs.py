@@ -341,6 +341,8 @@ def _mont_mul_kernel(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch
     build.require_card("mont_mul", a2, b2, same_width=False)
     out = torch.empty_like(a2)
     n = a2.shape[1]
+    if n >= 1 << 31:
+        raise ValueError(f"mont_mul: {n} elements, the kernel indexes fewer than 2^31")
     if n:
         build.check(lib.ez_mont_mul(_FIELD_ID[spec.name], a2.data_ptr(), b2.data_ptr(),
                                     out.data_ptr(), n, *form, build.stream_of(a2)), "mont_mul")

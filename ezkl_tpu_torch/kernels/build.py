@@ -11,8 +11,9 @@ Nothing here falls back: a missing `nvcc` or a failed build raises.
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels. `WIDTHS` keeps, beside it, the width and
 the Montgomery products of each launch of K1 (`mont_mul`, `mont_pow`,
-`mont_scan`), K2 (`ntt_stages`), K3 (`point_add`, `point_reduce`) and the
-fused MSM's K4-K8, so a run can also show how wide they were.
+`mont_scan`), K2 (`ntt_stages`), K3 (`point_add`, `point_reduce`), K9
+(`point_dbl`) and the fused MSM's K4-K8, so a run can also show how wide
+they were.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "mont_scan": 0, "ntt_stages": 0, "poin
             "fold_lanes": 0, "dbl_pow2": 0, "horner": 0}
 
 # (kernel, field, elements, products) of every K1 (`mont_mul`, `mont_pow`,
-# `mont_scan`), K2 (`ntt_stages`) and K3 (`point_add`, `point_reduce`; field
-# bn254_fq, elements = lanes in, products = 12 per add) launch, and
+# `mont_scan`), K2 (`ntt_stages`), K3 (`point_add`, `point_reduce`; field
+# bn254_fq, elements = lanes in, products = 12 per add) and K9 (`point_dbl`,
+# products = 8 per lane) launch, and
 # (kernel, field, lanes, products, bytes) of every K4-K8 launch (`scan_packed`,
 # `scan_steps`, `fold_lanes`, `dbl_pow2`, `horner`: lanes = point chains,
 # bytes = each input read and each output written once), since the last
@@ -54,7 +56,7 @@ _SIGNATURES = {
     "ez_ntt_stages": [_I, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _VP],
     "ez_point_add": [_VP] * 9 + [_LL, _I, _VP],
     "ez_point_reduce": [_VP] * 6 + [_LL, _I, _VP],
-    "ez_point_dbl": [_VP] * 6 + [_LL, _VP],
+    "ez_point_dbl": [_VP] * 6 + [_LL, _I, _VP],
     "ez_scan_packed": [_VP] * 6 + [_LL, _I, _I, _VP],
     "ez_scan_steps": [_I] + [_VP] * 6 + [_LL, _I, _I, _VP],
     "ez_fold_lanes": [_I] + [_VP] * 6 + [_LL, _I, _I, _I, _VP],

@@ -4,7 +4,8 @@ fused MSM's step-loop kernels K4-K8.
 K3 and K9 replace the TPU kernels `_add_call` and `_dbl_call` of
 `ezkl_tpu/kernels/pcurve.py` (entries `add` :722 and `dbl` :741); their CUDA
 kernels are in `csrc/curve.cu`, with K3 also in a tree form: the halving
-tree of `reduce_pairwise` in one launch. K4 `prefix_scan_packed`, K5
+tree of `reduce_pairwise` in one launch. Both pick a team of threads per
+lane by width (`point_add_team`, `dbl_team`). K4 `prefix_scan_packed`, K5
 `prefix_scan_steps`, K6 `fold_lanes`, K7 `dbl_pow2` and K8 `horner_combine`
 replace `_scan_call_packed`, `_scan_call`, `_fold_call`, `_dbln_call` and
 `_horner_call` (entries :389, :414, :499, :694, :628); their CUDA kernels are
@@ -170,10 +171,32 @@ def point_add(p: PointP, q: PointP) -> PointP:
     return point_add_plain(p, q)
 
 
+# K9 runs a team of T threads per lane (`csrc/curve.cu`): 4 where few lanes
+# leave the card idle and one doubling's latency sets the time, 2 above. Its
+# launches: 2^k lanes in `gen_srs` (2^14 at k = 14), 26 and 1 lanes in the
+# unfused MSM. The limit is from the H100 sweep in `chip_smoke.py`: 4 won up
+# to 2^13 lanes, 2 at 2^14 (PERF.md, K9's row).
+DBL_TEAMS = (2, 4)
+DBL_TEAM4_LANES = 1 << 13
+
+
+def dbl_team(n: int) -> int:
+    """Threads per lane of K9 for n lanes."""
+    return 4 if n <= DBL_TEAM4_LANES else 2
+
+
+def _dbl_launch(coords, team: int) -> PointP:
+    n = coords[0].reshape(NWORDS, -1).shape[1]
+    out = _launch("point_dbl", "ez_point_dbl", coords, post=(team,))
+    if n:
+        build.WIDTHS.append(("point_dbl", FQ.name, n, 8 * n))
+    return out
+
+
 def point_dbl(p: PointP) -> PointP:
     """Projective doubling (K9)."""
     if p.x.is_cuda:
-        return _launch("point_dbl", "ez_point_dbl", tuple(p))
+        return _dbl_launch(tuple(p), dbl_team(p.x[0].numel()))
     return point_dbl_plain(p)
 
 

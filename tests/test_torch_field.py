@@ -129,6 +129,116 @@ def test_k1_broadcast_operand_index(a_shape, b_shape, representable):
         assert limbs._unexpand(b.expand(shape)).shape == b_shape
 
 
+# A host program over `csrc/bcast.cuh`, the broadcast operand map of K1's
+# `ez_mont_mul`, built with `tools/cuda_emu` in place of CUDA. Reads lines
+# "d <divisor> <count> <x>..." (prints the divisor's m and s, then x / d by
+# `div_by` for each x) and "m <n> <period> <rep>" (prints the form the entry
+# picks, then the element of b that each output j < n reads).
+_BCAST_HOST = r"""
+#include "cuda_runtime.h"
+#include "bcast.cuh"
+#include <cstdio>
+using namespace bcast;
+template <int F>
+void map(long long n, const Divisor& p, const Divisor& r) {
+  for (long long j = 0; j < n; ++j) printf(" %u", b_index<F>((uint32_t)j, p, r));
+}
+int main() {
+  char op[2];
+  while (scanf("%1s", op) == 1) {
+    if (op[0] == 'd') {
+      long long d, k, x;
+      if (scanf("%lld %lld", &d, &k) != 2) return 1;
+      const Divisor v = divisor((uint32_t)d);
+      printf("%u %d", v.m, v.s);
+      for (long long i = 0; i < k && scanf("%lld", &x) == 1; ++i)
+        printf(" %u", div_by((uint32_t)x, v));
+    } else {
+      long long n, period, rep;
+      if (scanf("%lld %lld %lld", &n, &period, &rep) != 3) return 1;
+      const Form f = form_of(n, period, rep);
+      const Divisor p = divisor((uint32_t)period), r = divisor((uint32_t)rep);
+      printf("%d", (int)f);
+      if (f == kDense) map<kDense>(n, p, r);
+      else if (f == kConst) map<kConst>(n, p, r);
+      else if (f == kRow) map<kRow>(n, p, r);
+      else map<kGeneral>(n, p, r);
+    }
+    printf("\n");
+  }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def bcast_host(tmp_path_factory):
+    """Runs `_BCAST_HOST` on lines of input; returns its lines of ints."""
+    import pathlib
+    import shutil
+    import subprocess
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build csrc/bcast.cuh")
+    root = pathlib.Path(__file__).resolve().parent.parent
+    d = tmp_path_factory.mktemp("bcast")
+    (d / "host.cpp").write_text(_BCAST_HOST)
+    subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", f"-I{root / 'tools' / 'cuda_emu'}",
+                    f"-I{root / 'ezkl_tpu_torch' / 'csrc'}", "-o", str(d / "host"),
+                    str(d / "host.cpp")], check=True)
+
+    def run(lines):
+        out = subprocess.run([str(d / "host")], input="\n".join(lines) + "\n",
+                             capture_output=True, text=True, check=True).stdout
+        return [[int(v) for v in line.split()] for line in out.splitlines()]
+    return run
+
+
+@pytest.mark.parametrize("d", [2, 3, 5, 6, 7, 16, 20, 48, 641, 16384, 16385, 3 * 2 ** 20,
+                               (1 << 30) + 1, (1 << 31) - 1])
+def test_divisor_magic_divides_every_31_bit_index(bcast_host, d):
+    """`bcast::divisor`, the magic by which `ez_mont_mul`'s entry lets its
+    kernel divide by b's period and repeat: a 32-bit m, and
+    umulhi(x, m) >> s == x // d over edges and random x < 2^31."""
+    rng = np.random.default_rng(d)
+    xs = [0, 1, d - 1, d, d + 1, 2 * d - 1, (1 << 31) - 1, (1 << 31) - 2,
+          ((1 << 31) - 1) // d * d, ((1 << 31) - 1) // d * d - 1] + \
+        [int(x) for x in rng.integers(0, 1 << 31, size=2000)]
+    xs = [x for x in xs if x < 1 << 31]
+    (m, s, *q), = bcast_host([f"d {d} {len(xs)} " + " ".join(map(str, xs))])
+    assert 0 < m < 1 << 32 and s >= 0
+    assert q == [x // d for x in xs]
+
+
+@pytest.mark.parametrize("a_shape, b_shape", [
+    ((8, 3, 16), (8, 1, 1)),
+    ((8, 3, 16), (8, 1, 16)),
+    ((8, 3, 16), (8, 3, 1)),
+    ((8, 2, 3, 4), (8, 1, 3, 1)),
+    ((8, 3, 16), (8, 3, 16)),
+    ((8, 5, 6), (8, 1, 6)),          # widths that are no multiple of 4
+    ((8, 5, 6), (8, 5, 1)),
+    ((8, 7, 3, 5), (8, 1, 3, 1)),
+    ((8, 9, 7), (8, 9, 1)),
+    ((8, 7, 9, 11), (8, 1, 9, 1)),
+    ((8, 16, 8192), (8, 1, 8192)),   # the prove's 2^17: a row over a batch
+    ((8, 16, 8192), (8, 16, 1)),     # and one value per row
+])
+def test_k1_magic_index_is_the_broadcast_map(bcast_host, a_shape, b_shape):
+    """The element `ez_mont_mul` reads for output j, in the form its entry
+    picks (`bcast.cuh`) -- dense (period = n): j; constant (period = 1): 0;
+    row (rep = 1): j - (j / period) * period; general: q = j / rep,
+    q - (q / period) * period, each division by the entry's magic -- equals
+    (j // rep) % period, the map of `bcast_form`, at every j."""
+    shape = torch.broadcast_shapes(a_shape, b_shape)
+    period, rep = limbs.bcast_form(b_shape, shape)
+    n = int(np.prod(shape[1:]))
+    (form, *jb), = bcast_host([f"m {n} {period} {rep}"])
+    assert form == (0 if period == n else 1 if period == 1 else 2 if rep == 1 else 3)
+    j = np.arange(n, dtype=np.int64)
+    np.testing.assert_array_equal(np.asarray(jb, np.int64), (j // rep) % period)
+
+
 @pytest.mark.parametrize("field", sorted(SPECS))
 @pytest.mark.parametrize("e", ["0", "1", "2", "p-2"])
 def test_pow_static_plain_bit_exact_vs_reference(field, e):

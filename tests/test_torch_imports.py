@@ -1,12 +1,13 @@
 """Guards of the PyTorch/CUDA port (`ezkl_tpu_torch`):
 
 * neither the package nor its card scripts (`chip_smoke.py`,
-  `tools/profile_torch_prove.py`, `tools/bench_msm_kernels.py`) import
+  `tools/profile_torch_prove.py`, `tools/bench_msm_kernels.py`,
+  `tools/pair_k1_k9.py`) import
   `jax` or the JAX package `ezkl_tpu` (checked on the source with `ast`);
-* every kernel wrapper (K1 mont_mul and its chain forms mont_pow and
-  mont_scan, K2 ntt_stages and its one-stage entry bfly, K3 point_add at
-  each team size and its tree form point_reduce, K9 point_dbl, and the
-  fused MSM's K4
+* every kernel wrapper (K1 mont_mul in each broadcast form and its chain
+  forms mont_pow and mont_scan, K2 ntt_stages and its one-stage entry bfly,
+  K3 point_add at each team size and its tree form point_reduce, K9
+  point_dbl at each team size, and the fused MSM's K4
   scan_packed, K5 scan_steps and K6 fold_lanes in both variants, K6 and K7
   dbl_pow2 also at each team size, K8 horner) raises when its kernel
   cannot be built, instead of
@@ -15,8 +16,9 @@
 * on the card a Fermat inversion is one launch and a batch inversion runs
   its scan blocks as single launches, not one per product; a transform is
   one K2 launch per pass, not per stage; the halving tree of
-  `reduce_pairwise` is one launch; K3's single add, K6 and K7 pick their
-  team by width, and every K1-K8 launch records its width (`build.WIDTHS`).
+  `reduce_pairwise` is one launch; K3's single add, K6, K7 and K9 pick
+  their team by width, K1 passes its broadcast operand's period and
+  repeat, and every K1-K9 launch records its width (`build.WIDTHS`).
 
 No card is needed: the build is mocked, or replaced by a library that
 records its calls.
@@ -42,7 +44,7 @@ torch.set_num_threads(1)     # small tensors; pytest-xdist runs one worker per c
 def _sources():
     files = sorted((ROOT / "ezkl_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_prove.py",
-        ROOT / "tools" / "bench_msm_kernels.py"]
+        ROOT / "tools" / "bench_msm_kernels.py", ROOT / "tools" / "pair_k1_k9.py"]
     assert len(files) > 10
     return files
 
@@ -100,7 +102,13 @@ KERNEL_CALLS = {
     "point_add": lambda: pcurve._add_launch((*_points(), *_points()), 2),
     "point_add_team8": lambda: pcurve._add_launch((*_points(), *_points()), 8),
     "point_reduce": lambda: pcurve._reduce_kernel(_grid(3, 8)),
-    "point_dbl": lambda: pcurve._launch("point_dbl", "ez_point_dbl", tuple(_points())),
+    "point_dbl": lambda: pcurve._dbl_launch(tuple(_points()), pcurve.dbl_team(4)),
+    **{f"point_dbl_team{t}": (lambda t=t: pcurve._dbl_launch(tuple(_points()), t))
+       for t in pcurve.DBL_TEAMS},
+    **{f"mont_mul_{form}": (lambda a=a, b=b, bs=bs: limbs._mont_mul_kernel(
+        FR, _field(a).reshape(8, 2, -1), _field(b).reshape(8, *bs)))
+       for form, a, b, bs in (("constant", 16, 1, (1, 1)), ("row", 16, 8, (1, 8)),
+                              ("per_row", 16, 2, (2, 1)))},
     "scan_packed": lambda: pcurve._scan_packed_kernel(_grid(2, 4).x, _grid(2, 4).y, _signs(2, 4)),
     "scan_steps_complete": lambda: pcurve._scan_steps_kernel(_grid(2, 4)),
     "scan_steps_mixed": lambda: pcurve._scan_steps_kernel(tuple(_grid(2, 4))[:2]),
@@ -297,6 +305,49 @@ def test_point_add_team_by_lanes(card, n, team):
     assert card.args[0][-3:-1] == (n, team)
 
 
+@pytest.mark.parametrize("a_shape, b_shape, period, rep", [
+    ((8, 3, 16), (8, 3, 16), 48, 1),      # dense
+    ((8, 3, 16), (8, 1, 1), 1, 1),        # a constant
+    ((8, 3, 16), (8, 1, 16), 16, 1),      # a row
+    ((8, 6, 5), (8, 1, 5), 5, 1),         # a row of 5
+    ((8, 3, 16), (8, 3, 1), 3, 16),       # one value per row
+    ((8, 6, 5), (8, 6, 1), 6, 5),         # one per row of 5
+    ((8, 2, 3, 4), (8, 1, 3, 1), 3, 4),   # a run of middle dims
+    ((8, 3, 5), (8, 3, 5), 15, 1),        # n = 15
+    ((8, 1), (8, 1), 1, 1),               # n = 1
+])
+def test_mont_mul_on_the_card_passes_form_and_magic(card, a_shape, b_shape, period, rep):
+    """One `ez_mont_mul` launch per product, either operand side, given b's
+    (period, repeat) from `bcast_form`; its entry picks the form and the
+    divisors' magic from them (`csrc/bcast.cuh`)."""
+    n = int(np.prod(torch.broadcast_shapes(a_shape, b_shape)[1:]))
+    a = limbs.zeros(a_shape[1:], "cpu")
+    b = limbs.zeros(b_shape[1:], "cpu")
+    for lhs, rhs in ((a, b), (b, a)):
+        limbs._mont_mul_kernel(FR, lhs, rhs)
+    assert card.calls == ["ez_mont_mul"] * 2
+    for args in card.args:
+        assert len(args) == 8 and args[4:7] == (n, period, rep)
+    assert list(build.WIDTHS) == [("mont_mul", "bn254_fr", n, n)] * 2
+
+
+@pytest.mark.parametrize("n, team", [(1, 4), (26, 4), (1000, 4), (1 << 13, 4),
+                                     ((1 << 13) + 1, 2), (1 << 14, 2), (1 << 17, 2)])
+def test_point_dbl_team_by_lanes(card, n, team):
+    """K9 on the card: one `ez_point_dbl` launch with the team `dbl_team`
+    picks -- 4 threads per lane up to 2^13 lanes (the unfused MSM's 1 and
+    26), 2 above (`gen_srs` at k = 14 and more), the sides of the H100 sweep
+    (PERF.md) -- recorded in `build.WIDTHS` as (kernel, field, lanes, 8
+    products a lane)."""
+    assert pcurve.dbl_team(n) == team
+    assert team in pcurve.DBL_TEAMS
+    curve.dbl(curve.identity((n,), "cpu"))
+    assert card.calls == ["ez_point_dbl"]
+    assert card.args[0][-3:-1] == (n, team)
+    assert list(build.WIDTHS) == [("point_dbl", "bn254_fq", n, 8 * n)]
+    assert build.width_histogram() == {"point_dbl/bn254_fq": {f"2^{(n - 1).bit_length()}": 1}}
+
+
 @pytest.mark.parametrize("groups, team", [(26, 8), (32, 8), (33, 2), (52, 2), (208, 2)])
 def test_fold_lanes_team_by_lanes(card, groups, team):
     """K6 on the card over `groups` x 4 chunks of 128 lanes runs a team of 8
@@ -387,3 +438,31 @@ def test_profile_pairs_point_kernel_launches_with_device_events(monkeypatch):
         {"name": ops[1][2], "count": 1, "total_ms": pytest.approx(0.016)},
         {"name": ops[0][2], "count": 1, "total_ms": pytest.approx(0.014)}]
     assert [t["name"] for t in prof._top(ops)] == [ops[2][2]]
+
+
+def test_profile_pairs_k1_and_k9_launches_with_their_template_names():
+    """`tools/profile_torch_prove.py` pairs K1 launches with the device events
+    of `mont_mul_kernel<form, field>` (the field checked from the name) and
+    K9's with `point_dbl_kernel<team>`, with K9's bound from 192 bytes and 8
+    products a lane."""
+    import sys
+    sys.path.insert(0, str(ROOT / "tools"))
+    import chip_smoke
+    import profile_torch_prove as prof
+
+    n = 1 << 14
+    widths = [("mont_mul", "bn254_fr", n, n), ("point_dbl", "bn254_fq", n, 8 * n),
+              ("mont_mul", "bn254_fq", 8, 8)]
+    ops = [(10, 3000, "void (anonymous namespace)::mont_mul_kernel<1, bn254::Fr>(...)"),
+           (20, 7000, "void (anonymous namespace)::point_dbl_kernel<2>(...)"),
+           (30, 2000, "void (anonymous namespace)::mont_mul_kernel<0, bn254::Fq>(...)")]
+    out = prof._widths(ops, widths)
+    assert not any(k.endswith("_unpaired") for k in out)
+    assert out["mont_mul/bn254_fr"]["2^14"]["device_ms"] == pytest.approx(0.003)
+    assert out["mont_mul/bn254_fq"]["2^3"]["device_ms"] == pytest.approx(0.002)
+    dbl = out["point_dbl/bn254_fq"]["2^14"]
+    assert dbl["device_ms"] == pytest.approx(0.007)
+    assert dbl["bound_ms"] == pytest.approx(chip_smoke.bound(
+        192 * n, chip_smoke.IMAD_PER_MONT_MUL * 8 * n)[0])
+    swapped = [ops[0][:2] + (ops[2][2],), ops[1], ops[2][:2] + (ops[0][2],)]
+    assert "mont_mul_unpaired" in prof._widths(swapped, widths)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port's point and NTT kernels alone on the card, and what they compile to.
 
-    python3 tools/bench_msm_kernels.py [--only msm ntt adds] [--sass]
+    python3 tools/bench_msm_kernels.py [--only msm ntt adds k1 dbl] [--sass]
 
 Builds the kernels (printing ptxas' registers and spills), then runs the
 checks of `chip_smoke.py` named by `--only` (default `msm`): `msm`,
@@ -9,7 +9,9 @@ checks of `chip_smoke.py` named by `--only` (default `msm`): `msm`,
 every team size); `ntt`, `check_ntt_stages` (K2: every pass of k = 1 .. 17,
 each whole transform of the prove and a sweep of its groups per block);
 `adds`, `check_point_adds` (K3's tree and its single add at every team
-size and width the prove launches). Each is bit-exact against its plain
+size and width the prove launches); `k1`, `check_mont_mul` (K1
+elementwise in every broadcast form); `dbl`, `check_point_dbl` (K9 at every
+team size). Each is bit-exact against its plain
 version, one JSON `kernel` line per case with device times and bounds. With
 `--sass`, prints for each kernel of `msm.cu`, `field.cu` and `curve.cu` its
 SASS instruction count by opcode (cuobjdump), so the instruction mix of a
@@ -57,7 +59,8 @@ def sass_histogram(obj: pathlib.Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sass", action="store_true", help="print the SASS opcode counts")
-    ap.add_argument("--only", nargs="+", choices=("msm", "ntt", "adds"), default=["msm"],
+    ap.add_argument("--only", nargs="+", choices=("msm", "ntt", "adds", "k1", "dbl"),
+                    default=["msm"],
                     help="which kernels to check and time")
     args = ap.parse_args()
     import torch
@@ -74,7 +77,8 @@ def main() -> int:
                 chip_smoke.emit({"sass": kernel, "instructions": sum(ops.values()),
                                  "opcodes": ops})
     checks = {"msm": chip_smoke.check_msm_kernels, "ntt": chip_smoke.check_ntt_stages,
-              "adds": chip_smoke.check_point_adds}
+              "adds": chip_smoke.check_point_adds, "k1": chip_smoke.check_mont_mul,
+              "dbl": chip_smoke.check_point_dbl}
     dev, rng = torch.device("cuda", 0), np.random.default_rng(chip_smoke.SEED)
     for name in args.only:
         checks[name](dev, rng)

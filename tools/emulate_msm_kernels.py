@@ -9,18 +9,21 @@ thread, the blocks one after another, `__syncthreads` a barrier of the block,
 `__syncwarp(mask)` one of the threads of the warp that `mask` names),
 with each `kernel<<<grid, block, smem, stream>>>(args)` rewritten into a call
 of its emulated launch; the PTX carry helpers of `bn254.cuh` take their C
-branch. Then holds K1's chain forms (`ez_mont_pow` in both fields with
-zeros in the batch, `ez_mont_scan` over one and several rows), K2
-(`ez_ntt_stages`: every pass (s0, r) of every k <= 12, forward and inverse,
-over two columns, each at a seeded choice of groups per block), K3 (the
-single add at each team size over a ragged lane count, and the tree
-`ez_point_reduce` at w = 128 over 3 groups and at w = 2, with identity
-lanes), K4 (at each team size, with pad pairs and a ragged last block), K5
-(both variants at each team size, with identities and a ragged last block),
-K6 (both variants at each team size, identities, a ragged last block, one
-chunk), K7 (c = 1 to 3, identities, ragged lanes) and K8
-(edge shapes, identities only) on CPU tensors at tiny shapes against
-their plain versions, bit-exact. It checks
+branch. Then holds K1 (`ez_mont_mul` through its wrapper in both fields, in
+every broadcast form, either operand side, over ragged last blocks and
+n = 1) and its chain forms
+(`ez_mont_pow` in both fields with zeros in the batch, `ez_mont_scan` over
+one and several rows), K2 (`ez_ntt_stages`: every pass (s0, r) of every
+k <= 12, forward and inverse, over two columns, each at a seeded choice of
+groups per block), K3 (the single add at each team size over a ragged lane
+count, and the tree `ez_point_reduce` at w = 128 over 3 groups and at
+w = 2, with identity lanes), K9 (`ez_point_dbl` at each team size,
+identity lanes first and last, ragged last blocks), K4 (at each team size,
+with pad pairs and a ragged last block), K5 (both variants at each team
+size, with identities and a ragged last block), K6 (both variants at each
+team size, identities, a ragged last block, one chunk), K7 (c = 1 to 3,
+identities, ragged lanes) and K8 (edge shapes, identities only) on CPU
+tensors at tiny shapes against their plain versions, bit-exact. It checks
 the kernels' logic (indices, teams, barriers, carries) and times nothing;
 what only the card can show -- that nvcc accepts the source, the PTX, the
 speed -- still needs `chip_smoke.py` there. With `--prove` it then keys and
@@ -33,6 +36,7 @@ for card tensors), and compares each proof with the JAX package's frozen in
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import pathlib
@@ -110,6 +114,51 @@ def build_library() -> ctypes.CDLL:
     return handle
 
 
+@contextlib.contextmanager
+def card_route(lib):
+    """Every kernel wrapper takes its card route into `lib`: CPU tensors pass
+    for card tensors."""
+    saved = build._LIB, build.stream_of
+    build._LIB, build.stream_of = lib, (lambda t: None)
+    torch.Tensor.is_cuda = property(lambda self: True)
+    try:
+        yield
+    finally:
+        del torch.Tensor.is_cuda
+        build._LIB, build.stream_of = saved
+
+
+def mont_mul_cases(lib, rng, report):
+    """`ez_mont_mul` through its wrapper in both fields, in every broadcast
+    form, either operand side: dense at n = 1, 151 and 1,100 (a ragged last
+    block), a constant, a row of 20 and of 5, one value per row of 20 and of
+    5, a run of middle dims and both operands broadcast."""
+    dev = torch.device("cpu")
+    for spec in (bn254_fr(), bn254_fq()):
+        def elems(*shape):
+            n = int(np.prod(shape))
+            vals = [int.from_bytes(rng.bytes(32), "little") % spec.modulus for _ in range(n)]
+            vals[0] = 0
+            return limbs.to_device(limbs.encode(spec, vals), dev).reshape((8,) + shape)
+
+        x = elems(3, 20)
+        cases = {f"dense n={n}": (elems(n), elems(n)) for n in (1, 151, 1100)}
+        cases.update({
+            "constant": (x, elems(1, 1)), "row of 20": (x, elems(1, 20)),
+            "row of 5": (elems(6, 5), elems(1, 5)), "per row of 20": (x, elems(3, 1)),
+            "per row of 5": (elems(6, 5), elems(6, 1)),
+            "middle dims": (elems(2, 3, 4), elems(1, 3, 1)),
+            "both broadcast": (x[:, :1, :], x[:, :, :1])})
+        errs = {}
+        with card_route(lib):
+            for name, (a, b) in cases.items():
+                want = limbs.mont_mul_plain(spec, a, b)
+                errs[name] = max(cs.max_abs_err([limbs._mont_mul_kernel(spec, lhs, rhs)], [want])
+                                 for lhs, rhs in ((a, b), (b, a)))
+        for name, err in errs.items():
+            report(f"mont_mul {spec.name} {name}", err)
+
+
 def prove_through_the_kernel_routes(lib) -> list:
     """Both K=4 circuits proved with every wrapper on its kernel route into
     `lib`; returns the names of the circuits whose proof is not byte-equal to
@@ -119,26 +168,25 @@ def prove_through_the_kernel_routes(lib) -> list:
     from ezkl_tpu_torch.plonk import cs as csmod, keygen, prover, srs as srsmod, verifier
     from ezkl_tpu_torch.plonk.assign import Assignment
 
-    build._LIB = lib
-    build.stream_of = lambda t: None
-    torch.Tensor.is_cuda = property(lambda self: True)
-    srs = srsmod.gen_srs(circuits.K, device="cpu")
-    failed = []
-    for name in sorted(circuits.CIRCUITS):
-        fx = json.loads((ROOT / "tests" / "fixtures" / "torch_port" / f"{name}.json").read_text())
-        make, fill = circuits.CIRCUITS[name]
-        system, cols = make(csmod)
-        asg = fill(system, cols, Assignment)
-        pk = keygen.keygen(system, circuits.K, srs, asg, device="cpu")
-        build.reset_launches()
-        proof = prover.create_proof(pk, srs, asg, seed=fx["seed"])
-        same = proof.to_json() == fx["proof"]
-        ok = verifier.verify(pk.vk, srs.g2, srs.s_g2, proof)
-        print(f"prove {name}: byte-equal {same}, verifies {ok}, launches",
-              json.dumps(build.LAUNCHES), flush=True)
-        if not (same and ok):
-            failed.append(f"prove {name}")
-    return failed
+    with card_route(lib):
+        srs = srsmod.gen_srs(circuits.K, device="cpu")
+        failed = []
+        for name in sorted(circuits.CIRCUITS):
+            fx = json.loads((ROOT / "tests" / "fixtures" / "torch_port" / f"{name}.json")
+                            .read_text())
+            make, fill = circuits.CIRCUITS[name]
+            system, cols = make(csmod)
+            asg = fill(system, cols, Assignment)
+            pk = keygen.keygen(system, circuits.K, srs, asg, device="cpu")
+            build.reset_launches()
+            proof = prover.create_proof(pk, srs, asg, seed=fx["seed"])
+            same = proof.to_json() == fx["proof"]
+            ok = verifier.verify(pk.vk, srs.g2, srs.s_g2, proof)
+            print(f"prove {name}: byte-equal {same}, verifies {ok}, launches",
+                  json.dumps(build.LAUNCHES), flush=True)
+            if not (same and ok):
+                failed.append(f"prove {name}")
+        return failed
 
 
 def main() -> int:
@@ -164,11 +212,13 @@ def main() -> int:
     idx = lambda *shape: cs.torch_index(rng.integers(0, 64, size=shape), dev)  # noqa: E731
     failed = []
 
-    def check(name, got, want):
-        err = cs.max_abs_err(got, list(want))
+    def report(name, err):
         print(name, "max_abs_err", err, flush=True)
         if err:
             failed.append(name)
+
+    def check(name, got, want):
+        report(name, cs.max_abs_err(got, list(want)))
 
     fr = bn254_fr()
     for k in range(1, 13):
@@ -246,6 +296,14 @@ def main() -> int:
             check(f"fold_lanes mixed team={team} groups={G} chunks={chunks} blk={blk}",
                   call("ez_fold_lanes", list(Pa) + [None], (G, blk), post, pre=(1,)),
                   pcurve.fold_lanes_plain(Pa, blk))
+    for team in pcurve.DBL_TEAMS:
+        for n in (37, 70, 3):
+            mask = torch.zeros(n, dtype=torch.bool)
+            mask[0] = mask[n - 1] = True
+            Q = cs._set(cs._gather(P, idx(n)), mask, ident)
+            check(f"point_dbl team={team} lanes={n}",
+                  call("ez_point_dbl", list(Q), (n,), (n, team)),
+                  pcurve.point_dbl_plain(curve.PointP(*Q)))
     for n, c in ((37, 3), (70, 1), (3, 2)):
         mask = torch.zeros(n, dtype=torch.bool)
         mask[0] = mask[n - 1] = True
@@ -287,6 +345,7 @@ def main() -> int:
                 raise RuntimeError(f"ez_mont_scan returned {rc}")
             check(f"mont_scan {spec.name} rows={rows} steps={steps}",
                   [out], [limbs.seq_scan_mul_plain(spec, v)])
+    mont_mul_cases(lib, rng, report)
     if args.prove:
         failed += prove_through_the_kernel_routes(lib)
     print("FAILED: " + ", ".join(failed) if failed else "all bit-exact")

@@ -5,8 +5,10 @@
 
 Builds the kernels, keys the circuit of `chip_smoke.py` (k = 14 unless
 told), proves once to warm up, once more timed, and once under
-`torch.profiler`. Prints the card's name and power limit as nvidia-smi gives
-them, then one JSON line:
+`torch.profiler`, then runs `gen_srs` once more under it. Prints the card's
+name and power limit as nvidia-smi gives them, a `profile_gen_srs` line
+(its profiled wall and device busy seconds, launches, `top` and `widths` as
+below: K9's 2^k-lane doublings among them), then one JSON line:
 
   wall_s          host time of the timed create_proof (ends synchronized)
   profiled_wall_s the same for the profiled run (the profiler's own cost in)
@@ -62,13 +64,15 @@ import chip_smoke  # noqa: E402
 TOP = 15
 
 
-# bytes per element of a K1-K3 launch: K1 reads two operands and writes one;
-# its chain forms and a K2 pass read and write each element once (K2's
-# twiddles, at most half as many, left out, so its bound is a floor); K3
-# reads two points and writes one per lane, its tree reads one point per
-# partial (its one output per group left out). K4-K8 record their bytes.
+# bytes per element of a K1-K3 or K9 launch: K1 reads two operands and
+# writes one (a broadcast operand counted in full, so its bound is a
+# ceiling); its chain forms and a K2 pass read and write each element once
+# (K2's twiddles, at most half as many, left out, so its bound is a floor);
+# K3 reads two points and writes one per lane, its tree reads one point per
+# partial (its one output per group left out); K9 reads a point and writes
+# one. K4-K8 record their bytes.
 BYTES_PER_ELEMENT = {"mont_mul": 96, "mont_pow": 64, "mont_scan": 64, "ntt_stages": 64,
-                     "point_add": 288, "point_reduce": 96}
+                     "point_add": 288, "point_reduce": 96, "point_dbl": 192}
 # kernels compiled once per field, whose device names end in `<Fr>`/`<Fq>`
 PER_FIELD = ("mont_mul", "mont_pow", "mont_scan", "ntt_stages")
 
@@ -184,6 +188,18 @@ def main() -> int:
     widths = list(build.WIDTHS)
     busy, phases, ops = _breakdown(prof.profiler.kineto_results.events(), DeviceType.CUDA,
                                    set(prover.PHASE_SECONDS))
+    build.reset_launches()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        srsmod.gen_srs(args.k, device=dev)
+        torch.cuda.synchronize()
+        srs_wall = time.perf_counter() - t0
+    srs_busy, _, srs_ops = _breakdown(prof.profiler.kineto_results.events(), DeviceType.CUDA,
+                                      set())
+    chip_smoke.emit({"phase": "profile_gen_srs", "k": args.k, "profiled_wall_s": srs_wall,
+                     "device_busy_s": srs_busy, "launches": dict(build.LAUNCHES),
+                     "top": _top(srs_ops, args.match),
+                     "widths": _widths(srs_ops, list(build.WIDTHS))})
     chip_smoke.emit({"phase": "profile", "k": args.k, "wall_s": wall,
                      "profiled_wall_s": profiled_wall, "device_busy_s": busy,
                      "busy_share": busy / profiled_wall, "busy_share_of_wall": busy / wall,
