@@ -53,10 +53,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
               pipeline on the SRS points (affine=True, as commitments run it,
               and affine=False) and the unfused one (K9 must be > 0 there);
               and an NTT round trip at 2^17
+6. graph   -- the graded `mlp_4d` ONNX model (`examples/gen_graded.py`: the
+              same weights and input from default_rng(42), built with the
+              port's `onnx_writer`) through the port's file API on the card,
+              in a temporary directory: gen_settings (RunArgs(logrows=14),
+              every other argument at its default; the settings settle k),
+              compile_circuit, gen_srs at the settled k, gen_witness, setup,
+              prove(seed=1) cold and warm, verify; the verifier must reject
+              the proof with its first eval's low bit flipped, and the
+              witness's rescaled outputs must be within 4 * 2^-input_scale
+              of the port's float forward of the model. Launch counts are
+              reset just before the warm prove and read just after: K1-K8
+              must be > 0 there, and K9 > 0 in gen_srs. Then the CLI
+              (`python -m ezkl_tpu_torch prove` and `verify`, subprocesses,
+              EZKL_TPU_DET_SEED=1, the default device) proves and verifies
+              the same files, and its proof.json must be byte-equal to the
+              API's seeded one.
+7. poseidon -- the device Poseidon `hash_fixed_len` over 2^14 two-element
+              inputs on the card, bit-exact against `host_hash` on a sample
+              of 64 of them; its products are K1 launches.
 
-Then a `times` line (seconds of phases 3-5), the `kernels` summary line
+Then a `times` line (seconds of phases 3-7), the `kernels` summary line
 (times, bounds, launches: K1's three forms, K2, K3's two forms and K4-K8
-from create_proof, K9 from gen_srs), the nvidia-smi line, and last
+from the graph phase's warm prove, K9 from its gen_srs; `standin_launches`
+from phase 4's create_proof and gen_srs), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -64,8 +84,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -949,6 +972,194 @@ def check_outputs(dev, rng, srs):
     return unfused_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the graded mlp_4d model through the file API and the CLI
+# ---------------------------------------------------------------------------
+
+GRAPH_MODEL = "mlp_4d"
+GRAPH_LOGROWS = 14
+
+
+def mlp_4d(writer):
+    """`examples/gen_graded.py`'s mlp_4d with `writer` (an `onnx_writer`):
+    (onnx bytes, input.json dict), the same draws of default_rng(42) in the
+    same order."""
+    rng = np.random.default_rng(42)
+    w0 = rng.uniform(-1, 1, (4, 4)).astype(np.float32)
+    b0 = rng.uniform(-0.5, 0.5, (4,)).astype(np.float32)
+    w1 = rng.uniform(-1, 1, (4, 4)).astype(np.float32)
+    b1 = rng.uniform(-0.5, 0.5, (4,)).astype(np.float32)
+    nodes = [
+        writer.node("Gemm", ["x", "w0", "b0"], ["h0"], name="l0"),
+        writer.node("Relu", ["h0"], ["a0"], name="relu0"),
+        writer.node("Gemm", ["a0", "w1", "b1"], ["h1"], name="l1"),
+        writer.node("Relu", ["h1"], ["y"], name="relu1"),
+    ]
+    onnx = writer.model(nodes, {"x": (1, 4)}, {"y": (1, 4)},
+                        {"w0": w0.T.copy(), "b0": b0, "w1": w1.T.copy(), "b1": b1})
+    x = rng.uniform(-1, 1, (1, 4)).astype(np.float64)
+    return onnx, {"input_data": [x.reshape(-1).tolist()]}
+
+
+def _cli(*args):
+    """`python -m ezkl_tpu_torch <args>` in a subprocess from the repo root
+    (default device), with the seed of the API's proof."""
+    env = dict(os.environ, EZKL_TPU_DET_SEED=str(SEED))
+    out = subprocess.run([sys.executable, "-m", "ezkl_tpu_torch", *args],
+                         cwd=str(pathlib.Path(__file__).resolve().parent), env=env,
+                         capture_output=True, text=True, timeout=600)
+    return out.returncode, (out.stdout + out.stderr).strip().splitlines()[-1:]
+
+
+def graph(dev, wd):
+    """Phase 6 in the directory `wd`. Returns (launches of the warm prove,
+    launches of gen_srs)."""
+    import torch
+    from ezkl_tpu_torch import api
+    from ezkl_tpu_torch.graph import onnx_writer
+    from ezkl_tpu_torch.graph.model import forward_float
+    from ezkl_tpu_torch.graph.run_args import RunArgs
+    from ezkl_tpu_torch.kernels import build
+
+    wd = pathlib.Path(wd)
+    f = {name: str(wd / name) for name in (
+        "network.onnx", "input.json", "settings.json", "model.compiled", "kzg.srs",
+        "witness.json", "vk.key", "pk.key", "proof.json", "proof_warm.json",
+        "proof_bad.json", "proof_cli.json")}
+    onnx, inp = mlp_4d(onnx_writer)
+    pathlib.Path(f["network.onnx"]).write_bytes(onnx)
+    pathlib.Path(f["input.json"]).write_text(json.dumps(inp))
+    seconds = {}
+
+    def phase(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    st = phase("gen_settings", lambda: api.gen_settings(
+        f["network.onnx"], f["settings.json"], RunArgs(logrows=GRAPH_LOGROWS)))
+    k = st.run_args.logrows
+    phase("compile", lambda: api.compile_circuit(f["network.onnx"], f["settings.json"],
+                                                 f["model.compiled"]))
+    build.reset_launches()
+    phase("gen_srs", lambda: api.gen_srs(f["kzg.srs"], k, device=dev))
+    srs_launches = dict(build.LAUNCHES)
+    wit = phase("gen_witness", lambda: api.gen_witness(
+        f["model.compiled"], f["input.json"], f["witness.json"], srs_path=f["kzg.srs"],
+        device=dev))
+    phase("setup", lambda: api.setup(f["model.compiled"], f["input.json"], f["kzg.srs"],
+                                     f["vk.key"], f["pk.key"], device=dev))
+    phase("prove_cold", lambda: api.prove(f["model.compiled"], f["input.json"], f["pk.key"],
+                                          f["kzg.srs"], f["proof.json"], seed=SEED, device=dev))
+    build.reset_launches()
+    phase("prove_warm", lambda: api.prove(f["model.compiled"], f["input.json"], f["pk.key"],
+                                          f["kzg.srs"], f["proof_warm.json"], seed=SEED,
+                                          device=dev))
+    launches = dict(build.LAUNCHES)
+    ok = phase("verify", lambda: api.verify(f["proof.json"], f["vk.key"], f["kzg.srs"],
+                                            device=dev))
+    # tools/prove_graded.py's tamper: the first eval's low bit flipped
+    pj = json.loads(pathlib.Path(f["proof.json"]).read_text())
+    label = sorted(pj["evals"])[0]
+    pj["evals"][label] = hex(int(pj["evals"][label], 16) ^ 1)
+    pathlib.Path(f["proof_bad.json"]).write_text(json.dumps(pj))
+    rejected = not api.verify(f["proof_bad.json"], f["vk.key"], f["kzg.srs"], device=dev)
+
+    gc = api.load_compiled(f["model.compiled"])
+    arrays = api._reshape_for(gc, api._load_input(f["input.json"], gc.model.input_scales()))
+    want = np.concatenate([o.reshape(-1) for o in forward_float(gc.model, arrays)])
+    got = np.concatenate([np.asarray(o).reshape(-1)
+                          for o in wit["pretty_elements"]["rescaled_outputs"]])
+    out_err = float(np.max(np.abs(got - want)))
+    out_tol = 4.0 * 2.0 ** -st.run_args.input_scale
+    # the lookup arguments per table: a table larger than the usable rows
+    # splits into column sets, one argument each ("<table>#<j>")
+    from ezkl_tpu_torch.plonk import serde
+    names = [lk.name.split("#")[0] for lk in serde.load_vk(f["vk.key"]).cs.lookups]
+    seeded = pathlib.Path(f["proof.json"]).read_bytes()
+    warm_equal = pathlib.Path(f["proof_warm.json"]).read_bytes() == seeded
+
+    t0 = time.perf_counter()
+    cli_prove = _cli("prove", "--compiled-circuit", f["model.compiled"], "-D", f["input.json"],
+                     "--pk-path", f["pk.key"], "--srs-path", f["kzg.srs"],
+                     "--proof-path", f["proof_cli.json"])
+    seconds["cli_prove"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli_verify = _cli("verify", "--proof-path", f["proof_cli.json"], "--vk-path", f["vk.key"],
+                      "--srs-path", f["kzg.srs"])
+    seconds["cli_verify"] = time.perf_counter() - t0
+    cli_file = pathlib.Path(f["proof_cli.json"])
+    cli_equal = cli_file.exists() and cli_file.read_bytes() == seeded
+    emit({"phase": "graph", "model": GRAPH_MODEL, "k": k, "num_rows": st.num_rows,
+          "lookups": st.required_lookups,
+          "lookup_arguments": {name: names.count(name) for name in sorted(set(names))},
+          "run_args": st.run_args.to_dict(), "seconds": seconds,
+          "outputs": got.tolist(), "outputs_float": want.tolist(),
+          "outputs_max_err": out_err, "outputs_tol": out_tol,
+          "launches": launches, "gen_srs_launches": srs_launches,
+          "verified": ok, "tamper_rejected": rejected, "warm_proof_equal": warm_equal,
+          "cli_prove": cli_prove, "cli_verify": cli_verify, "cli_proof_equal": cli_equal})
+    if not ok:
+        raise AssertionError("the port's verifier rejected the mlp_4d proof")
+    if not rejected:
+        raise AssertionError("the verifier accepted the proof with a flipped eval")
+    if not out_err <= out_tol:
+        raise AssertionError(f"rescaled outputs {got} off the float forward {want} "
+                             f"by {out_err} > {out_tol}")
+    if not warm_equal:
+        raise AssertionError("two seeded proofs of one witness differ")
+    missing = [name for name in launches if name != "point_dbl" and launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the warm prove: {missing}")
+    if srs_launches["point_dbl"] <= 0:
+        raise AssertionError("point_dbl not launched by gen_srs")
+    if not (cli_prove[0] == 0 and cli_verify[0] == 0 and cli_equal):
+        raise AssertionError(f"the CLI's prove {cli_prove} / verify {cli_verify} failed or "
+                             f"its proof differs from the API's (equal: {cli_equal})")
+    return launches, srs_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the device Poseidon hash
+# ---------------------------------------------------------------------------
+
+POSEIDON_N = 1 << 14
+POSEIDON_SAMPLE = 64
+
+
+def poseidon(dev, rng):
+    import torch
+    from ezkl_tpu_torch.fieldmath import limbs
+    from ezkl_tpu_torch.fieldmath.spec import bn254_fr
+    from ezkl_tpu_torch.kernels import build
+    from ezkl_tpu_torch.kernels import poseidon as pos
+
+    FR = bn254_fr()
+    xs = [[int.from_bytes(rng.bytes(32), "little") % FR.modulus for _ in range(2)]
+          for _ in range(POSEIDON_N)]
+    inputs = limbs.to_device(limbs.encode(FR, xs), dev).movedim(1, 2).contiguous()  # (8, 2, n)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pos.hash_fixed_len(FR, inputs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    sample = rng.choice(POSEIDON_N, POSEIDON_SAMPLE, replace=False)
+    got = limbs.decode(FR, out[:, torch.as_tensor(sample, device=dev)])
+    bad = [int(i) for i, g in zip(sample, got) if int(g) != pos.host_hash(xs[i])]
+    emit({"phase": "poseidon", "n": POSEIDON_N, "width": pos.WIDTH, "inputs_per_hash": 2,
+          "sample": POSEIDON_SAMPLE, "mismatches": bad, "seconds": seconds,
+          "mont_mul_launches": launches["mont_mul"], "launches": launches})
+    if bad:
+        raise AssertionError(f"device Poseidon differs from host_hash at {bad[:8]}")
+    if launches["mont_mul"] <= 0:
+        raise AssertionError("the device Poseidon launched no K1")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -980,17 +1191,27 @@ def main() -> int:
     t_prove = time.perf_counter() - t0
     t0 = time.perf_counter()
     unfused_launches = check_outputs(dev, rng, srs)
+    t_check = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        graph_launches, graph_srs_launches = graph(dev, wd)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    poseidon(dev, rng)
     emit({"phase": "times", "kernels_s": t_kernels, "prove_phase_s": t_prove,
-          "check_s": time.perf_counter() - t0})
+          "check_s": t_check, "graph_s": t_graph, "poseidon_s": time.perf_counter() - t0})
 
-    # launches: K1 (each form) to K8 from create_proof; K9 from gen_srs, its
-    # path since the fused MSM (K7, K8) took over the MSM's doublings
-    paths = {name: ("create_proof", launches[name]) for name in launches}
-    paths["point_dbl"] = ("gen_srs", srs_launches["point_dbl"])
+    # launches: K1 (each form) to K8 from the graph phase's warm prove; K9
+    # from its gen_srs, K9's path since the fused MSM (K7, K8) took over the
+    # MSM's doublings; the stand-in circuit's counts beside them
+    paths = {name: ("graph warm prove", graph_launches[name]) for name in graph_launches}
+    paths["point_dbl"] = ("graph gen_srs", graph_srs_launches["point_dbl"])
+    standin = dict(launches, point_dbl=srs_launches["point_dbl"])
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "ok": rows[name]["max_abs_err"] == 0,
          "launches": paths[name][1], "launches_path": paths[name][0],
+         "standin_launches": standin[name],
          "max_abs_err": rows[name]["max_abs_err"],
          "ms": rows[name]["ms"], "l2_ms": rows[name]["l2_ms"],
          "eager_ms": rows[name]["eager_ms"],

@@ -51,6 +51,12 @@ def stack_from_ref(a, device=None) -> torch.Tensor:
     return limbs.to_device(_stack_words(a), device)
 
 
+def stack_to_ref(t) -> np.ndarray:
+    """(C, 8, n) column stack (tensor or host array) -> (C, 16, n) uint32."""
+    w = np.moveaxis(limbs.host_words(t), 1, 0)                 # (8, C, n)
+    return np.ascontiguousarray(np.moveaxis(limbs_to_ref(w), 0, 1))
+
+
 def points_from_ref(p, device=None) -> PointP:
     """Projective point with (16, *B) coordinates .x, .y, .z -> PointP."""
     return PointP(*(limbs_from_ref(c, device) for c in (p.x, p.y, p.z)))

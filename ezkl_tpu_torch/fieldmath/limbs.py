@@ -119,6 +119,16 @@ def pack_rows(a) -> np.ndarray:
     return np.ascontiguousarray(out).view([("", np.uint64)] * 4).reshape(-1)
 
 
+def pack_rows_multi(blocks) -> np.ndarray:
+    """List of (8, n) RAW word arrays (a tuple of values per row) -> (n,)
+    structured array over 4*len(blocks) u64 fields (row-wise tuples); the
+    same u64 values as the JAX package's, which packs 16-bit limbs."""
+    packed = np.concatenate([pack_rows(a).view(np.uint64).reshape(-1, 4)
+                             for a in blocks], axis=1)
+    return np.ascontiguousarray(packed).view(
+        [("", np.uint64)] * (4 * len(blocks))).reshape(-1)
+
+
 @functools.lru_cache(maxsize=4096)
 def _const_cached(spec: FieldSpec, value: int, mont: bool, device: str):
     return to_device(encode(spec, [value], mont=mont)[:, 0], device)

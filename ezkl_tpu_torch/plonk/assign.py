@@ -69,6 +69,11 @@ class Assignment:
         arr = limbs.encode_i64(FR, values)
         self._store(col)[col.index][:, row0:row0 + arr.shape[-1]] = arr
 
+    def set_ints_at(self, col: Column, rows: list[int], values):
+        """Assign Python ints at scattered rows."""
+        arr = limbs.encode(FR, [v % FR.modulus for v in values], mont=False)
+        self._store(col)[col.index][:, rows] = arr
+
     def apply_phase1(self, challenges: dict[int, int]):
         """Fill phase-1 advice columns via the witness callback."""
         if self.phase_callback is None:
@@ -84,6 +89,15 @@ class Assignment:
     def copy(self, a: Column, arow: int, b: Column, brow: int):
         self.copies.append((a, np.asarray([arow], np.int64),
                             b, np.asarray([brow], np.int64)))
+
+    # -- reads (host ints, for debugging / instance prep) ---------------------
+
+    def get_int(self, col: Column, row: int) -> int:
+        if col.kind == INSTANCE:
+            vals = self.instance[col.index]
+            return vals[row] if row < len(vals) else 0
+        a = self._store(col)[col.index][:, row:row + 1]
+        return int(limbs.decode(FR, a, mont=False)[0])
 
     # -- device conversion --------------------------------------------------
 

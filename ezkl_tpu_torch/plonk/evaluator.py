@@ -44,6 +44,36 @@ class EvalCtx:
         return next(iter(self.columns.values())).device
 
 
+@dataclasses.dataclass
+class ChunkCtx:
+    """EvalCtx over one row chunk [start, start+size) of a length-n domain.
+
+    Rotations become wraparound gathers into the full columns, so gate
+    evaluation memory is O(size), independent of n (the MockProver's path
+    for large domains)."""
+
+    columns: dict
+    rot_step: int
+    challenges: dict
+    start: int
+    size: int
+    n: int
+
+    def query(self, kind: str, index: int, rotation: int) -> torch.Tensor:
+        v = self.columns[kind][index]
+        idx = (self.start + torch.arange(self.size, device=v.device)
+               + rotation * self.rot_step) % self.n
+        return v.index_select(-1, idx)
+
+    @property
+    def m(self) -> int:
+        return self.size
+
+    @property
+    def device(self):
+        return next(iter(self.columns.values())).device
+
+
 def evaluate(expr: Expr, ctx: EvalCtx) -> torch.Tensor:
     """-> (8, m) Montgomery evals of the expression over the domain."""
     if isinstance(expr, Constant):

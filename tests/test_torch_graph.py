@@ -1,0 +1,225 @@
+"""The port's graph layer (`ezkl_tpu_torch/graph/`) against the JAX
+package's, on the models of `torch_port_graph_models.MODELS`, on the CPU.
+
+Everything here but the MockProver runs on the host in both packages, so it
+is computed live in both: the `onnx_writer` bytes, `settings.json`,
+`model.compiled` and `witness.json` byte-equal, and the finalized
+assignment (every fixed and advice cell, the instance, the copy
+constraints, and the Freivalds second-phase columns) equal word for word.
+The port's MockProver runs on the CPU tensor route; the JAX package's
+failure lists, on the honest witness and on one with a cell corrupted, are
+frozen in `tests/fixtures/torch_port/graph_<model>/mock.json`
+(`tools/make_torch_fixtures.py --part graph`) and must be equal. The
+`kzgcommit` model's witness holds device commitments:
+`tests/test_torch_api.py` checks it."""
+
+import json
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ezkl_tpu import api as ref_api
+from ezkl_tpu.graph import onnx_writer as ref_writer
+from ezkl_tpu.graph.run_args import RunArgs as RefRunArgs
+from ezkl_tpu_torch import api, convert
+from ezkl_tpu_torch.graph import onnx_writer, ops
+from ezkl_tpu_torch.graph.run_args import RunArgs
+from ezkl_tpu_torch.plonk import mock
+from ezkl_tpu_torch.plonk.cs import ADVICE, Column
+
+import torch_port_graph_models as models
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
+MODELS = sorted(models.MODELS)
+HOST_WITNESS = [m for m in MODELS if models.MODELS[m][1].get("param_visibility") != "kzgcommit"]
+torch.set_num_threads(1)     # small tensors; pytest-xdist runs one worker per core
+
+
+def _files(root, package_api, run_args_cls, writer, name):
+    """settings.json and model.compiled of one package under `root`."""
+    root.mkdir(parents=True, exist_ok=True)
+    onnx, inp = models.MODELS[name][0](writer)
+    (root / "network.onnx").write_bytes(onnx)
+    (root / "input.json").write_text(json.dumps(inp))
+    package_api.gen_settings(root / "network.onnx", root / "settings.json",
+                             models.run_args(run_args_cls, name))
+    package_api.compile_circuit(root / "network.onnx", root / "settings.json",
+                                root / "model.compiled")
+    return root
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    """name -> (reference directory, port directory)."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            base = tmp_path_factory.mktemp(name)
+            cache[name] = (_files(base / "ref", ref_api, RefRunArgs, ref_writer, name),
+                           _files(base / "port", api, RunArgs, onnx_writer, name))
+        return cache[name]
+    return get
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_onnx_writer_bytes_equal_the_reference(name):
+    build = models.MODELS[name][0]
+    assert build(onnx_writer)[0] == build(ref_writer)[0]
+
+
+def test_mlp_4d_is_the_graded_model(tmp_path):
+    """`chip_smoke.mlp_4d` (the model the card proves, and the tests' mlp_4d)
+    writes the bytes and input of `examples/gen_graded.py`'s mlp_4d."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import gen_graded
+    gen_graded.gen_mlp_4d(tmp_path)
+    onnx, inp = models.mlp_4d(onnx_writer)
+    assert onnx == (tmp_path / "mlp_4d.onnx").read_bytes()
+    assert json.dumps(inp) == (tmp_path / "mlp_4d_input.json").read_text()
+
+
+@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("artifact", ["settings.json", "model.compiled"])
+def test_settings_and_compiled_byte_equal_the_reference(files, name, artifact):
+    ref, port = files(name)
+    assert (port / artifact).read_bytes() == (ref / artifact).read_bytes()
+    fx = FIXTURES / f"graph_{name}" / artifact
+    assert (port / artifact).read_bytes() == fx.read_bytes()
+
+
+@pytest.mark.parametrize("name", HOST_WITNESS)
+def test_witness_byte_equal_the_reference(files, name):
+    ref, port = files(name)
+    ref_api.gen_witness(ref / "model.compiled", ref / "input.json", ref / "witness.json")
+    api.gen_witness(port / "model.compiled", port / "input.json", port / "witness.json",
+                    device="cpu")
+    assert (port / "witness.json").read_bytes() == (ref / "witness.json").read_bytes()
+
+
+def _assignments(files, name):
+    """The finalized assignments of both packages on the model's input."""
+    out = []
+    for package_api, d in zip((ref_api, api), files(name)):
+        gc = package_api.load_compiled(d / "model.compiled")
+        arrays = package_api._reshape_for(
+            gc, package_api._load_input(d / "input.json", gc.model.input_scales()))
+        cfg, ctx, _ = gc.forward(arrays)
+        out.append((gc, cfg, ctx.finalize()))
+    return out
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_finalized_assignment_equals_the_reference(files, name):
+    """Every cell, the instance and the copies; with the Freivalds route's
+    second-phase advice filled by the same challenge in both."""
+    (ref_gc, ref_cfg, ref_asg), (gc, cfg, asg) = _assignments(files, name)
+    assert (asg.phase_callback is None) == (ref_asg.phase_callback is None)
+    if asg.phase_callback is not None:
+        challenges = {i: pow(gc.MOCK_CHALLENGE, i + 1, mock.FR.modulus)
+                      for i in range(cfg.cs.num_challenges)}
+        asg.apply_phase1(challenges)
+        ref_asg.apply_phase1(challenges)
+    np.testing.assert_array_equal(asg.fixed, convert._stack_words(ref_asg.fixed))
+    np.testing.assert_array_equal(asg.advice, convert._stack_words(ref_asg.advice))
+    assert asg.instance == ref_asg.instance
+    assert len(asg.copies) == len(ref_asg.copies)
+    for (ca, ra, cb, rb), (xa, qa, xb, qb) in zip(asg.copies, ref_asg.copies):
+        assert (ca.kind, ca.index, cb.kind, cb.index) == (xa.kind, xa.index, xb.kind, xb.index)
+        np.testing.assert_array_equal(ra, qa)
+        np.testing.assert_array_equal(rb, qb)
+    assert sorted(cfg.tables) == sorted(ref_cfg.tables)
+
+
+def _failures(fails):
+    return [[f.kind, f.name, [int(r) for r in f.rows]] for f in fails]
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_mock_failure_lists_equal_the_reference(files, name):
+    """The port's MockProver passes the honest witness and, with the cell
+    the fixture names corrupted by +1, reports the reference's failures."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import make_torch_fixtures as fixtures
+
+    fx = json.loads((FIXTURES / f"graph_{name}" / "mock.json").read_text())
+    _, port = files(name)
+    gc = api.load_compiled(port / "model.compiled")
+    arrays = api._reshape_for(gc, api._load_input(port / "input.json", gc.model.input_scales()))
+    assert _failures(gc.mock_prove(arrays, device="cpu")) == fx["honest"] == []
+
+    cfg, ctx, _ = gc.forward(arrays)
+    asg = ctx.finalize()
+    row = fixtures.corrupt_row(asg.copies)
+    assert (fx["column"], fx["row"]) == (fixtures.CORRUPT_COLUMN, row)
+    col = Column(ADVICE, fixtures.CORRUPT_COLUMN)
+    asg.set_ints_at(col, [row], [asg.get_int(col, row) + 1])
+    challenges = None
+    if asg.phase_callback is not None:
+        challenges = {i: pow(gc.MOCK_CHALLENGE, i + 1, mock.FR.modulus)
+                      for i in range(cfg.cs.num_challenges)}
+        asg.apply_phase1(challenges)
+    got = _failures(mock.verify(asg, challenges, device="cpu"))
+    assert got and got == fx["corrupted"]
+
+
+def _elu_model(alphas):
+    nodes = [onnx_writer.node("Elu", ["x"], ["h"], name="e0", alpha=alphas[0]),
+             onnx_writer.node("Elu", ["h"], ["y"], name="e1", alpha=alphas[1])]
+    return onnx_writer.model(nodes, {"x": (1, 4)}, {"y": (1, 4)}, {})
+
+
+def test_tables_are_keyed_by_the_parameters_of_their_function(tmp_path, monkeypatch):
+    """Two Elu nodes with different alpha get two tables (the JAX package
+    names both "elu" and proves the second with the first's table); the
+    on-disk table cache is keyed the same way."""
+    monkeypatch.setenv("EZKL_TPU_CACHE", str(tmp_path))
+    monkeypatch.setattr(ops, "_table_cache_store",
+                        lambda tname, ys: stored.append(tname))
+    stored = []
+    (tmp_path / "m.onnx").write_bytes(_elu_model((1.0, 0.5)))
+    ra = RunArgs(input_scale=2, param_scale=2, lookup_range=(-64, 64), decomp_base=32)
+    st = api.gen_settings(tmp_path / "m.onnx", tmp_path / "s.json", ra)
+    elu = [t for t in st.required_lookups if t.startswith("elu")]
+    assert len(elu) == 2 and elu[0] != elu[1]
+    assert {t.split("_")[0] for t in stored} >= {"elu1.0", "elu0.5"}
+
+
+def test_table_cache_writes_through_a_per_process_temporary(tmp_path, monkeypatch):
+    monkeypatch.setenv("EZKL_TPU_CACHE", str(tmp_path))
+    monkeypatch.delenv("EZKL_TPU_NO_TABLE_CACHE", raising=False)
+    saved = []
+    real_save = np.save
+    monkeypatch.setattr(np, "save", lambda f, a, **kw: (saved.append(pathlib.Path(f).name),
+                                                        real_save(f, a, **kw)))
+    ys = np.arange(1 << 16, dtype=np.int64)
+    ops._table_cache_store("t_si2_so2", ys)
+    import os
+    assert saved == [f".t_si2_so2.{os.getpid()}.tmp.npy"]
+    np.testing.assert_array_equal(ops._table_cache_load("t_si2_so2", ys.size), ys)
+    assert sorted(p.name for p in (tmp_path / "tables").iterdir()) == ["t_si2_so2.npy"]
+
+
+def test_chunk_ctx_evaluates_as_the_whole_domain():
+    """`evaluator.ChunkCtx` (the MockProver's path above 2^17 rows): a gate
+    with rotations, evaluated chunk by chunk with wraparound gathers, equals
+    the whole-domain evaluation."""
+    from ezkl_tpu_torch.fieldmath import limbs
+    from ezkl_tpu_torch.plonk import cs as csmod
+    from ezkl_tpu_torch.plonk.evaluator import ChunkCtx, EvalCtx, evaluate
+    system = csmod.ConstraintSystem()
+    a, b = system.advice_column(), system.advice_column()
+    poly = system.query(a, -1) * system.query(b, 1) + system.query(a) * 7 - 3
+    rng = np.random.default_rng(5)
+    n, size = 64, 16
+    cols = {csmod.ADVICE: limbs.to_device(limbs.encode(
+        mock.FR, rng.integers(0, 1 << 62, (2, n)).tolist()), "cpu").movedim(1, 0)}
+    whole = evaluate(poly, EvalCtx(columns=cols, rot_step=1, challenges={}))
+    chunks = [evaluate(poly, ChunkCtx(columns=cols, rot_step=1, challenges={},
+                                      start=s, size=size, n=n))
+              for s in range(0, n, size)]
+    assert torch.cat(chunks, dim=1).equal(whole)

@@ -3,7 +3,8 @@
 * neither the package nor its card scripts (`chip_smoke.py`,
   `tools/profile_torch_prove.py`, `tools/bench_msm_kernels.py`,
   `tools/pair_k1_k9.py`) import
-  `jax` or the JAX package `ezkl_tpu` (checked on the source with `ast`);
+  `jax` or the JAX package `ezkl_tpu` (checked on the source with `ast`,
+  and for the API and the CLI also in a fresh interpreter);
 * every kernel wrapper (K1 mont_mul in each broadcast form and its chain
   forms mont_pow and mont_scan, K2 ntt_stages and its one-stage entry bfly,
   K3 point_add at each team size and its tree form point_reduce, K9
@@ -63,6 +64,20 @@ def test_port_never_imports_jax_or_the_jax_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [m for m in _imported_modules(tree) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_api_and_cli_import_neither_jax_nor_the_jax_package():
+    """In a fresh interpreter, importing the port's API and CLI leaves no
+    `jax` or `ezkl_tpu` module behind (catches imports inside functions
+    that run at import time, which the scan above cannot see)."""
+    import subprocess
+    import sys
+    code = ("import sys, ezkl_tpu_torch.api, ezkl_tpu_torch.__main__; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ezkl_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def _no_nvcc(*args, **kwargs):

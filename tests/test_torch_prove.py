@@ -90,7 +90,7 @@ def keys(srs):
     return get
 
 
-@pytest.mark.parametrize("kind", ["Transcript", "KeccakTranscript"])
+@pytest.mark.parametrize("kind", ["Transcript", "KeccakTranscript", "EvmTranscript"])
 def test_transcript_challenges_byte_identical_to_reference(kind):
     """Bytes, scalars (reduced mod r), points (identity = 64 zero bytes) and
     the challenge chaining give the reference's challenges."""
@@ -103,6 +103,19 @@ def test_transcript_challenges_byte_identical_to_reference(kind):
         getattr(own, method)(arg)
         getattr(ref, method)(arg)
         assert own.challenge() == ref.challenge()
+
+
+def test_decode_host_helpers_read_device_values(srs):
+    """`decode_point_host` of an (8,) point and `decode_scalar_host` of an
+    (8,) Montgomery scalar give host values."""
+    from ezkl_tpu_torch.fieldmath import curve, limbs
+    from ezkl_tpu_torch.fieldmath.spec import bn254_fr
+    from ezkl_tpu_torch.plonk import transcript
+    pts = curve.decode_points(srs.g1)
+    assert transcript.decode_point_host(srs.g1.map(lambda a: a[:, 1])) == pts[1]
+    assert transcript.decode_point_host(curve.identity((), "cpu")) is None
+    v = limbs.to_device(limbs.encode(bn254_fr(), [12345]), "cpu")[:, 0]
+    assert transcript.decode_scalar_host(v) == 12345
 
 
 def test_gen_srs_bit_exact_vs_reference(srs):

@@ -13,17 +13,29 @@ mul + lookup + copy circuit and the shuffle circuit) and writes, under
                      K7 dbl_pow2, K8 horner_combine), `_prefix_points_fused`
                      and `_msm_multi_fused`, on the inputs of
                      `torch_port_circuits.fused_cases`, as (8, *batch) words
+  graph_<model>/     the file pipeline of the JAX package's `api` on each
+                     model of `torch_port_graph_models.MODELS`: network.onnx,
+                     input.json, settings.json, model.compiled, kzg.srs (at
+                     the settled k), witness.json, vk.key, proof.json
+                     (`prove(seed=1)`), and mock.json (the MockProver's
+                     failures on the honest witness and on one with a cell
+                     corrupted)
 
-The port's tests (`tests/test_torch_prove.py`, `tests/test_torch_fused_msm.py`)
-compare against these files, so the suite never compiles the JAX prover nor
-runs Pallas interpret mode. The fused part runs the TPU kernels through the
+The port's tests (`tests/test_torch_prove.py`, `tests/test_torch_fused_msm.py`,
+`tests/test_torch_graph.py`, `tests/test_torch_api.py`) compare against these
+files, so the suite never compiles the JAX prover nor runs Pallas interpret
+mode. The fused part runs the TPU kernels through the
 Pallas interpreter (EZKL_TPU_PALLAS=1 EZKL_TPU_PALLAS_INTERPRET=1) in
 subprocesses, as `tests/test_pallas_interpret.py` does (each job took 7 to
 40 minutes on an 8-core CPU; the MSM cases' job peaks near 32 GB). Run from the repo
 root (the proofs part compiles the JAX prover on the CPU: about half an hour
 on 8 cores):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--part proofs|fused]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--part proofs|fused|graph]
+
+The graph part runs one subprocess per model, all at once: each compiles
+the JAX package's gen_srs, keygen and prover for its shapes (about 4, 35
+and 40 minutes on 8 shared cores; 87 minutes in all, 5-7 GB each).
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import numpy as np  # noqa: E402
 
 import torch_port_circuits as circuits  # noqa: E402
+import torch_port_graph_models as graph_models  # noqa: E402
 
 OUT = ROOT / "tests" / "fixtures" / "torch_port"
 K = circuits.K
@@ -230,18 +243,124 @@ def make_fused():
         raise RuntimeError(f"fused fixture jobs failed: {failed}")
 
 
+# The cell the mock check corrupts: in advice column a1 (index 1, where
+# lookup inputs and outputs live), the middle one of the rows that copy
+# constraints tie to other cells.
+CORRUPT_COLUMN = 1
+
+
+def corrupt_row(copies) -> int:
+    """`copies`: an Assignment's batches (col_a, rows_a, col_b, rows_b)."""
+    rows = sorted({int(r) for ca, ra, cb, rb in copies
+                   for col, rs in ((ca, ra), (cb, rb))
+                   if (str(col.kind), int(col.index)) == ("advice", CORRUPT_COLUMN)
+                   for r in rs})
+    return rows[len(rows) // 2]
+
+
+def _failures(fails):
+    return [[f.kind, f.name, [int(r) for r in f.rows]] for f in fails]
+
+
+def _graph_child(name):
+    """Runs in a subprocess: the JAX package's file pipeline on one model."""
+    import jax
+    import ezkl_tpu
+    from ezkl_tpu import api
+    from ezkl_tpu.graph import onnx_writer
+    from ezkl_tpu.graph.run_args import RunArgs
+    from ezkl_tpu.plonk import mock
+    from ezkl_tpu.fieldmath.spec import FR_MODULUS
+    from ezkl_tpu.plonk.cs import ADVICE, Column
+
+    cache = pathlib.Path(ezkl_tpu.cache_dir())
+    cache.mkdir(parents=True, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(cache))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    d = OUT / f"graph_{name}"
+    d.mkdir(parents=True, exist_ok=True)
+    build, _ = graph_models.MODELS[name]
+    onnx, inp = build(onnx_writer)
+    (d / "network.onnx").write_bytes(onnx)
+    (d / "input.json").write_text(json.dumps(inp))
+    times = {}
+
+    def phase(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        times[label] = round(time.perf_counter() - t0, 1)
+        print(f"{name}: {label} {times[label]} s", flush=True)
+        return out
+
+    f = {k: str(d / k) for k in ("network.onnx", "input.json", "settings.json",
+                                 "model.compiled", "kzg.srs", "witness.json",
+                                 "vk.key", "pk.key", "proof.json")}
+    st = phase("gen_settings", lambda: api.gen_settings(
+        f["network.onnx"], f["settings.json"], graph_models.run_args(RunArgs, name)))
+    api.compile_circuit(f["network.onnx"], f["settings.json"], f["model.compiled"])
+    phase("gen_srs", lambda: api.gen_srs(f["kzg.srs"], st.run_args.logrows))
+    phase("gen_witness", lambda: api.gen_witness(
+        f["model.compiled"], f["input.json"], f["witness.json"], srs_path=f["kzg.srs"]))
+
+    gc = api.load_compiled(f["model.compiled"])
+    arrays = api._reshape_for(gc, api._load_input(f["input.json"], gc.model.input_scales()))
+    honest = phase("mock", lambda: gc.mock_prove(arrays))
+    assert not honest, honest
+    cfg, ctx, _ = gc.forward(arrays)
+    asg = ctx.finalize()
+    row = corrupt_row(asg.copies)
+    col = Column(ADVICE, CORRUPT_COLUMN)
+    asg.set_ints_at(col, [row], [asg.get_int(col, row) + 1])
+    challenges = None
+    if asg.phase_callback is not None:          # as GraphCircuit.mock_prove
+        challenges = {i: pow(gc.MOCK_CHALLENGE, i + 1, FR_MODULUS)
+                      for i in range(cfg.cs.num_challenges)}
+        asg.apply_phase1(challenges)
+    bad = mock.verify(asg, challenges)
+    assert bad, "corrupting a cell went unnoticed"
+    (d / "mock.json").write_text(json.dumps({
+        "honest": _failures(honest), "column": CORRUPT_COLUMN, "row": row,
+        "corrupted": _failures(bad)}, indent=1))
+
+    phase("setup", lambda: api.setup(f["model.compiled"], f["input.json"], f["kzg.srs"],
+                                     f["vk.key"], f["pk.key"]))
+    phase("prove", lambda: api.prove(f["model.compiled"], f["input.json"], f["pk.key"],
+                                     f["kzg.srs"], f["proof.json"], seed=SEED))
+    ok = phase("verify", lambda: api.verify(f["proof.json"], f["vk.key"], f["kzg.srs"]))
+    assert ok, "the reference's proof does not verify"
+    pathlib.Path(f["pk.key"]).unlink()       # large, and rebuilt by the tests' keygen
+    print(f"{name}: k={st.run_args.logrows} {json.dumps(times)}", flush=True)
+
+
+def make_graph():
+    """The graph part: one subprocess per model, all at once."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    procs = {name: subprocess.Popen([sys.executable, __file__, "--graph-child", name],
+                                    env=env, cwd=str(ROOT))
+             for name in graph_models.MODELS}
+    failed = [name for name, p in procs.items() if p.wait()]
+    if failed:
+        raise RuntimeError(f"graph fixture jobs failed: {failed}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--part", choices=("all", "proofs", "fused"), default="all")
+    ap.add_argument("--part", choices=("all", "proofs", "fused", "graph"), default="all")
     ap.add_argument("--fused-child", help=argparse.SUPPRESS)
+    ap.add_argument("--graph-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t0 = time.perf_counter()
     if args.fused_child:
         return _fused_child(args.fused_child.split(","))
+    if args.graph_child:
+        return _graph_child(args.graph_child)
     if args.part in ("all", "proofs"):
         make_proofs()
     if args.part in ("all", "fused"):
         make_fused()
+    if args.part in ("all", "graph"):
+        make_graph()
     print(f"done in {time.perf_counter() - t0:.0f} s", flush=True)
 
 

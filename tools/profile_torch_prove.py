@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Profile one `create_proof` of the PyTorch/CUDA port on the card.
 
-    python3 tools/profile_torch_prove.py [--k 14]
+    python3 tools/profile_torch_prove.py [--k 14] [--graph]
 
 Builds the kernels, keys the circuit of `chip_smoke.py` (k = 14 unless
-told), proves once to warm up, once more timed, and once under
+told; with `--graph` instead the graded mlp_4d model of its graph phase,
+keyed through the file API in a temporary directory at the k its settings
+settle on), proves once to warm up, once more timed, and once under
 `torch.profiler`, then runs `gen_srs` once more under it. Prints the card's
 name and power limit as nvidia-smi gives them, a `profile_gen_srs` line
 (its profiled wall and device busy seconds, launches, `top` and `widths` as
@@ -48,9 +50,11 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import json
 import pathlib
 import re
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -149,11 +153,40 @@ def _top(ops, match=None):
     return [{"name": name[:120], "count": c, "total_ms": ns / 1e6} for name, (c, ns) in keep]
 
 
+def _graph_key(dev, wd):
+    """mlp_4d keyed through the port's file API in `wd`: (pk, srs, its
+    finalized assignment, k), the key and SRS loaded from their files."""
+    from ezkl_tpu_torch import api
+    from ezkl_tpu_torch.graph import onnx_writer
+    from ezkl_tpu_torch.graph.run_args import RunArgs
+    from ezkl_tpu_torch.plonk import serde, srs as srsmod
+
+    onnx, inp = chip_smoke.mlp_4d(onnx_writer)
+    f = {name: str(wd / name) for name in ("network.onnx", "input.json", "settings.json",
+                                           "model.compiled", "kzg.srs", "vk.key", "pk.key")}
+    pathlib.Path(f["network.onnx"]).write_bytes(onnx)
+    pathlib.Path(f["input.json"]).write_text(json.dumps(inp))
+    st = api.gen_settings(f["network.onnx"], f["settings.json"],
+                          RunArgs(logrows=chip_smoke.GRAPH_LOGROWS))
+    k = st.run_args.logrows
+    api.compile_circuit(f["network.onnx"], f["settings.json"], f["model.compiled"])
+    api.gen_srs(f["kzg.srs"], k, device=dev)
+    api.setup(f["model.compiled"], f["input.json"], f["kzg.srs"], f["vk.key"], f["pk.key"],
+              device=dev)
+    gc = api.load_compiled(f["model.compiled"])
+    arrays = api._reshape_for(gc, api._load_input(f["input.json"], gc.model.input_scales()))
+    _, ctx, _ = gc.forward(arrays)
+    return (serde.load_pk(f["pk.key"], dev), srsmod.load(f["kzg.srs"], dev),
+            ctx.finalize(), k)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k", type=int, default=chip_smoke.K)
     ap.add_argument("--match", help="also list in `top` every device operation past "
                     "the first 15 whose name matches this regular expression")
+    ap.add_argument("--graph", action="store_true",
+                    help="profile the mlp_4d model of chip_smoke.py's graph phase")
     args = ap.parse_args()
 
     import torch
@@ -167,9 +200,13 @@ def main() -> int:
     print(chip_smoke.nvidia_smi(), flush=True)
     build.lib()
     dev = torch.device("cuda", 0)
-    cs, asg, _ = chip_smoke.build_circuit(np.random.default_rng(chip_smoke.SEED), args.k)
-    srs = srsmod.gen_srs(args.k, device=dev)
-    pk = keygen.keygen(cs, args.k, srs, asg, device=dev)
+    if args.graph:
+        with tempfile.TemporaryDirectory() as wd:
+            pk, srs, asg, args.k = _graph_key(dev, pathlib.Path(wd))
+    else:
+        cs, asg, _ = chip_smoke.build_circuit(np.random.default_rng(chip_smoke.SEED), args.k)
+        srs = srsmod.gen_srs(args.k, device=dev)
+        pk = keygen.keygen(cs, args.k, srs, asg, device=dev)
 
     def prove():
         t0 = time.perf_counter()
@@ -200,7 +237,9 @@ def main() -> int:
                      "device_busy_s": srs_busy, "launches": dict(build.LAUNCHES),
                      "top": _top(srs_ops, args.match),
                      "widths": _widths(srs_ops, list(build.WIDTHS))})
-    chip_smoke.emit({"phase": "profile", "k": args.k, "wall_s": wall,
+    chip_smoke.emit({"phase": "profile", "k": args.k,
+                     "circuit": chip_smoke.GRAPH_MODEL if args.graph else "stand-in",
+                     "wall_s": wall,
                      "profiled_wall_s": profiled_wall, "device_busy_s": busy,
                      "busy_share": busy / profiled_wall, "busy_share_of_wall": busy / wall,
                      "phases": phases, "top": _top(ops, args.match), "launches": launches,
