@@ -37,7 +37,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               overflow the L2, so operands come from HBM as `bound_ms`
               assumes; `l2_ms`: the same launch repeated on one set of
               inputs, which then sits in L2), as eager calls from Python
-              (`eager_ms`) and, for the plain version, eagerly (`plain_ms`)
+              (`eager_ms`) and, for the plain version, eagerly (`plain_ms`);
+              then every kernel at the widths the k = 20 path (phase 8)
+              launches it (K1 over 2^23 elements, K1's block scan over
+              2^15 rows, K2 over one quotient group of 8 x 2^23, K4-K6 and
+              K3 over one window group of 8 windows of 2^20 points, K3's
+              tree, K7 and K8 over 32 columns of 16 windows, K9 over 2^20
+              lanes): the kernel on the whole input, its plain version on
+              the first and last lanes, bit-exact, timed (`kernel` lines
+              with "path": "conv2d_mnist k=20")
 4. prove   -- the main path at k = 14: gen_srs, keygen, create_proof(seed=1)
               of a circuit with a multiplication gate, a 256-entry lookup,
               copy constraints into the instance and a shuffle, filled over
@@ -48,7 +56,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               create_proof (whose commitments run the fused MSM), K9 in
               gen_srs; K2 must run two passes per transform, K6, K7 and
               K8 once per fused MSM (5), K3 (single and tree) at most 20
-              times.
+              times. Then `resume`: the same seed-1 prove with a checkpoint
+              directory, crashed as phase 5 starts and again as phase 6
+              starts (`prover._span` made to raise), then run again; each
+              resumed proof must equal the uninterrupted one byte for byte
+              and the checkpoint must be cleared.
 5. check   -- 2^14-point MSMs on the card against the host MSM: the fused
               pipeline on the SRS points (affine=True, as commitments run it,
               and affine=False) and the unfused one (K9 must be > 0 there);
@@ -69,15 +81,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
               EZKL_TPU_DET_SEED=1, the default device) proves and verifies
               the same files, and its proof.json must be byte-equal to the
               API's seeded one.
+8. conv2d_mnist -- the graded `conv2d_mnist` (`examples/gen_graded.py`,
+              the draws of default_rng(7), the port's `onnx_writer`) through
+              the file API on the card: gen_settings at the default run
+              arguments (its k printed: 15), then `run_args.logrows` = 20
+              in settings.json (the reference example's K), compile,
+              gen_srs(20), gen_witness, setup, prove(seed=1) with a
+              checkpoint directory cold and warm, verify; the flipped-eval
+              proof rejected; the outputs within 0.5 of a float64 forward
+              computed here, the same argmax; peak device memory below
+              80 GB; K1-K8 launched in the warm prove, K9 in gen_srs(20).
+              Seconds and peak bytes per step and per prover phase, the
+              sizes of pk.key and of the checkpoint. Then the aggregate of
+              this proof and the graph phase's mlp_4d proof (two vks):
+              `verify_aggr` must accept it and reject it with an inner eval
+              flipped.
 7. poseidon -- the device Poseidon `hash_fixed_len` over 2^14 two-element
               inputs on the card, bit-exact against `host_hash` on a sample
               of 64 of them; its products are K1 launches.
 
-Then a `times` line (seconds of phases 3-7), the `kernels` summary line
+Then a `times` line (seconds of each phase), the `kernels` summary line
 (times, bounds, launches: K1's three forms, K2, K3's two forms and K4-K8
 from the graph phase's warm prove, K9 from its gen_srs; `standin_launches`
-from phase 4's create_proof and gen_srs), the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`.
+from phase 4's create_proof and gen_srs; `k20`: launches in the warm
+conv2d_mnist prove (K9: gen_srs(20)), device ms and bound at its widths),
+the nvidia-smi line, and last `{"ok": true, "device": {...}}`. The phases
+run in the order 3, 4 (with resume), 5, 6, 8, 7.
 """
 
 from __future__ import annotations
@@ -900,7 +929,8 @@ def prove(dev, rng):
           "rows_used": use,
           "srs_s": t_srs, "keygen_s": t_keygen, "prove_s": t_prove, "verify_s": t_verify,
           "prove_phases_s": dict(prover.PHASE_SECONDS),
-          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "peak_mem_bytes": max(prover.PHASE_PEAK_BYTES.values()),
+          "phase_peak_bytes": dict(prover.PHASE_PEAK_BYTES),
           "launches": launches, "gen_srs_launches": srs_launches,
           "point_launches": sum(launches[k] for k in POINT_KERNELS),
           "ntt_calls": transforms["calls"], "ntt_passes": transforms["passes"],
@@ -925,7 +955,7 @@ def prove(dev, rng):
     if launches["point_add"] + launches["point_reduce"] > K3_LAUNCHES_MAX:
         raise AssertionError(f"K3 launched {launches['point_add']} + "
                              f"{launches['point_reduce']} times, above {K3_LAUNCHES_MAX}")
-    return srs, launches, srs_launches
+    return srs, launches, srs_launches, (pk, asg, proof.to_json())
 
 
 # ---------------------------------------------------------------------------
@@ -1001,6 +1031,63 @@ def mlp_4d(writer):
     return onnx, {"input_data": [x.reshape(-1).tolist()]}
 
 
+def _conv2d_mnist_draws():
+    """`examples/gen_graded.py`'s conv2d_mnist weights and input: the same
+    draws of default_rng(7) in the same order."""
+    rng = np.random.default_rng(7)
+    d = {"k": rng.uniform(-0.3, 0.3, (4, 1, 5, 5)).astype(np.float32),
+         "kb": rng.uniform(-0.1, 0.1, (4,)).astype(np.float32),
+         "fcw": rng.uniform(-0.2, 0.2, (4 * 11 * 11, 10)).astype(np.float32),
+         "fcb": rng.uniform(-0.1, 0.1, (10,)).astype(np.float32)}
+    return d, (rng.integers(0, 256, (1, 1, 28, 28)) // 16).astype(np.float64)
+
+
+def conv2d_mnist(writer):
+    """`examples/gen_graded.py`'s conv2d_mnist with `writer` (an
+    `onnx_writer`): (onnx bytes, input.json dict). Conv 4 x 1 x 5 x 5
+    (stride 2) -> ReLU -> 2x2 average pool (stride 1) -> Flatten -> Gemm
+    484 x 10 on a 1 x 1 x 28 x 28 input of pixels in [0, 16)."""
+    weights, x = _conv2d_mnist_draws()
+    nodes = [
+        writer.node("Conv", ["x", "k", "kb"], ["c0"], name="conv",
+                    kernel_shape=[5, 5], strides=[2, 2], pads=[0, 0, 0, 0]),
+        writer.node("Relu", ["c0"], ["a0"], name="relu0"),
+        writer.node("AveragePool", ["a0"], ["p0"], name="pool",
+                    kernel_shape=[2, 2], strides=[1, 1]),
+        writer.node("Flatten", ["p0"], ["f0"], name="flat"),
+        writer.node("Gemm", ["f0", "fcw", "fcb"], ["y"], name="fc"),
+    ]
+    onnx = writer.model(nodes, {"x": (1, 1, 28, 28)}, {"y": (1, 10)}, weights)
+    return onnx, {"input_data": [x.reshape(-1).tolist()]}
+
+
+def conv2d_mnist_float():
+    """The float64 forward of `conv2d_mnist` on its input, from its weights
+    (the port's `forward_float` has no Conv): conv (stride 2, no padding) +
+    bias, ReLU, 2x2 average pool of stride 1, flatten, x @ fcw + fcb."""
+    w, x = _conv2d_mnist_draws()
+    k, kb, fcw, fcb = (np.asarray(w[name], np.float64) for name in ("k", "kb", "fcw", "fcb"))
+    x = x.reshape(28, 28)
+    conv = np.empty((4, 12, 12))
+    for i in range(12):
+        for j in range(12):
+            patch = x[2 * i:2 * i + 5, 2 * j:2 * j + 5]
+            conv[:, i, j] = np.tensordot(k[:, 0], patch, axes=([1, 2], [0, 1])) + kb
+    act = np.maximum(conv, 0.0)
+    pool = (act[:, :-1, :-1] + act[:, 1:, :-1] + act[:, :-1, 1:] + act[:, 1:, 1:]) / 4.0
+    return pool.reshape(-1) @ fcw + fcb
+
+
+def with_logrows(settings_path, logrows, settings_cls):
+    """Rewrite settings.json with `run_args.logrows` set, as the reference
+    example's K = 20 sets it (`settings_cls`: a package's GraphSettings)."""
+    path = pathlib.Path(settings_path)
+    st = settings_cls.from_json(path.read_text())
+    st.run_args.logrows = logrows
+    path.write_text(st.to_json())
+    return st
+
+
 def _cli(*args):
     """`python -m ezkl_tpu_torch <args>` in a subprocess from the repo root
     (default device), with the seed of the API's proof."""
@@ -1022,6 +1109,7 @@ def graph(dev, wd):
     from ezkl_tpu_torch.kernels import build
 
     wd = pathlib.Path(wd)
+    wd.mkdir(parents=True, exist_ok=True)
     f = {name: str(wd / name) for name in (
         "network.onnx", "input.json", "settings.json", "model.compiled", "kzg.srs",
         "witness.json", "vk.key", "pk.key", "proof.json", "proof_warm.json",
@@ -1123,6 +1211,415 @@ def graph(dev, wd):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the graded conv2d_mnist at k = 20, and aggregation with mlp_4d
+# ---------------------------------------------------------------------------
+
+CONV_MODEL = "conv2d_mnist"
+# the outputs' largest error against the float64 forward, and the argmax
+# equal (the CPU reading: 0.392, class 9)
+CONV_TOL = 0.5
+
+
+def _dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in pathlib.Path(path).rglob("*") if p.is_file())
+
+
+def conv(dev, wd, mlp):
+    """Phase 8 in the directory `wd`: conv2d_mnist at k = 20 through the API,
+    then the aggregate of its proof and mlp_4d's (`mlp`: the graph phase's
+    (proof.json, vk.key) paths). Returns (launches of the warm prove,
+    launches of gen_srs)."""
+    import torch
+    from ezkl_tpu_torch import api
+    from ezkl_tpu_torch.graph import onnx_writer
+    from ezkl_tpu_torch.graph.circuit import GraphSettings
+    from ezkl_tpu_torch.kernels import build
+    from ezkl_tpu_torch.plonk import prover, serde
+
+    wd = pathlib.Path(wd)
+    wd.mkdir(parents=True, exist_ok=True)
+    f = {name: str(wd / name) for name in (
+        "network.onnx", "input.json", "settings.json", "model.compiled", "kzg.srs",
+        "witness.json", "vk.key", "pk.key", "proof.json", "proof_warm.json",
+        "proof_bad.json", "proof_aggr.json", "proof_aggr_bad.json")}
+    ckpt = wd / "checkpoints"
+    onnx, inp = conv2d_mnist(onnx_writer)
+    pathlib.Path(f["network.onnx"]).write_bytes(onnx)
+    pathlib.Path(f["input.json"]).write_text(json.dumps(inp))
+    seconds, peak = {}, {}
+
+    def phase(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        # a prove resets the peak at each of its phases (`prover._span`)
+        peaks = list(prover.PHASE_PEAK_BYTES.values()) if label.startswith("prove") else []
+        peak[label] = max([torch.cuda.max_memory_allocated()] + peaks)
+        return out
+
+    st = phase("gen_settings", lambda: api.gen_settings(f["network.onnx"], f["settings.json"]))
+    k_default = st.run_args.logrows
+    # the reference example's K = 20
+    st = with_logrows(f["settings.json"], K20, GraphSettings)
+    phase("compile", lambda: api.compile_circuit(f["network.onnx"], f["settings.json"],
+                                                 f["model.compiled"]))
+    build.reset_launches()
+    phase("gen_srs", lambda: api.gen_srs(f["kzg.srs"], K20, device=dev))
+    srs_launches = dict(build.LAUNCHES)
+    wit = phase("gen_witness", lambda: api.gen_witness(
+        f["model.compiled"], f["input.json"], f["witness.json"], srs_path=f["kzg.srs"],
+        device=dev))
+    phase("setup", lambda: api.setup(f["model.compiled"], f["input.json"], f["kzg.srs"],
+                                     f["vk.key"], f["pk.key"], device=dev))
+
+    # the checkpoint's size, read as a successful prove clears it
+    ckpt_bytes = {}
+    real_clear = prover._ProveCheckpoint.clear
+
+    def clear(self):
+        ckpt_bytes.update({p.name: p.stat().st_size for p in self.dir.iterdir()})
+        real_clear(self)
+
+    prover._ProveCheckpoint.clear = clear
+    try:
+        prove_args = (f["model.compiled"], f["input.json"], f["pk.key"], f["kzg.srs"])
+        phase("prove_cold", lambda: api.prove(*prove_args, f["proof.json"], seed=SEED,
+                                              device=dev, checkpoint_dir=str(ckpt)))
+        cold = (dict(prover.PHASE_SECONDS), dict(prover.PHASE_PEAK_BYTES))
+        build.reset_launches()
+        phase("prove_warm", lambda: api.prove(*prove_args, f["proof_warm.json"], seed=SEED,
+                                              device=dev, checkpoint_dir=str(ckpt)))
+        launches = dict(build.LAUNCHES)
+        warm = (dict(prover.PHASE_SECONDS), dict(prover.PHASE_PEAK_BYTES))
+    finally:
+        prover._ProveCheckpoint.clear = real_clear
+    ok = phase("verify", lambda: api.verify(f["proof.json"], f["vk.key"], f["kzg.srs"],
+                                            device=dev))
+    pj = json.loads(pathlib.Path(f["proof.json"]).read_text())
+    label = sorted(pj["evals"])[0]
+    pj["evals"][label] = hex(int(pj["evals"][label], 16) ^ 1)
+    pathlib.Path(f["proof_bad.json"]).write_text(json.dumps(pj))
+    rejected = not api.verify(f["proof_bad.json"], f["vk.key"], f["kzg.srs"], device=dev)
+    warm_equal = (pathlib.Path(f["proof_warm.json"]).read_bytes()
+                  == pathlib.Path(f["proof.json"]).read_bytes())
+
+    want = conv2d_mnist_float()
+    got = np.asarray(wit["pretty_elements"]["rescaled_outputs"], np.float64).reshape(-1)
+    out_err = float(np.max(np.abs(got - want)))
+    argmax_equal = int(np.argmax(got)) == int(np.argmax(want))
+
+    # aggregate this proof with mlp_4d's: two circuits, two vks, one pairing
+    proofs, vks = [str(mlp[0]), f["proof.json"]], [str(mlp[1]), f["vk.key"]]
+    agg = phase("aggregate", lambda: api.aggregate(proofs, vks, f["proof_aggr.json"]))
+    agg_ok = phase("verify_aggr", lambda: api.verify_aggr(f["proof_aggr.json"], vks,
+                                                          f["kzg.srs"], device=dev))
+    bad = json.loads(pathlib.Path(f["proof_aggr.json"]).read_text())
+    label = sorted(bad["proofs"][1]["evals"])[0]
+    bad["proofs"][1]["evals"][label] = hex(int(bad["proofs"][1]["evals"][label], 16) ^ 1)
+    pathlib.Path(f["proof_aggr_bad.json"]).write_text(json.dumps(bad))
+    agg_rejected = not api.verify_aggr(f["proof_aggr_bad.json"], vks, f["kzg.srs"],
+                                       device=dev)
+
+    vk = serde.load_vk(f["vk.key"])
+    cs = vk.cs
+    emit({"phase": "conv2d_mnist", "model": CONV_MODEL, "k_default_settings": k_default,
+          "k": vk.k, "extended_k": vk.domain.extended_k, "num_rows": st.num_rows,
+          "columns": {"fixed": cs.num_fixed, "advice": cs.num_advice,
+                      "instance": cs.num_instance, "permutation": len(cs.perm_columns)},
+          "lookup_arguments": len(cs.lookups), "gates": len(cs.gates),
+          "max_gate_degree": cs.max_gate_degree(),
+          "seconds": seconds, "peak_bytes": peak, "peak_bytes_all": max(peak.values()),
+          "prove_cold_phases_s": cold[0], "prove_cold_phase_peak_bytes": cold[1],
+          "prove_warm_phases_s": warm[0], "prove_warm_phase_peak_bytes": warm[1],
+          "pk_key_bytes": os.path.getsize(f["pk.key"]),
+          "srs_bytes": os.path.getsize(f["kzg.srs"]),
+          "checkpoint_bytes": ckpt_bytes, "checkpoint_left": _dir_bytes(ckpt),
+          "outputs": got.tolist(), "outputs_float": want.tolist(),
+          "outputs_max_err": out_err, "outputs_tol": CONV_TOL,
+          "argmax": int(np.argmax(got)), "argmax_float": int(np.argmax(want)),
+          "launches": launches, "gen_srs_launches": srs_launches,
+          "verified": ok, "tamper_rejected": rejected, "warm_proof_equal": warm_equal,
+          "aggregate_proofs": agg["num_proofs"], "aggregate_verified": agg_ok,
+          "aggregate_tamper_rejected": agg_rejected})
+    if vk.k != K20 or vk.domain.extended_k != K20_EXT:
+        raise AssertionError(f"conv2d_mnist at k = {vk.k}, extended {vk.domain.extended_k}")
+    if not ok:
+        raise AssertionError("the port's verifier rejected the conv2d_mnist proof")
+    if not rejected:
+        raise AssertionError("the verifier accepted the conv2d_mnist proof with a flipped eval")
+    if not (out_err <= CONV_TOL and argmax_equal):
+        raise AssertionError(f"outputs {got} off the float64 forward {want}: "
+                             f"{out_err} > {CONV_TOL} or another argmax")
+    if not warm_equal:
+        raise AssertionError("two seeded conv2d_mnist proofs differ")
+    if not (agg_ok and agg_rejected):
+        raise AssertionError(f"aggregate verified {agg_ok}, tampered rejected {agg_rejected}")
+    if max(peak.values()) >= 80e9:
+        raise AssertionError(f"peak device memory {max(peak.values())} B")
+    missing = [name for name in launches if name != "point_dbl" and launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the warm k = 20 prove: {missing}")
+    if srs_launches["point_dbl"] <= 0:
+        raise AssertionError("point_dbl not launched by gen_srs(20)")
+    return launches, srs_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4, continued: crash and resume the k = 14 prove
+# ---------------------------------------------------------------------------
+
+RESUME_CUTS = ("phase5: quotient", "phase6: evaluations")
+
+
+def resume(dev, pk, srs, asg, baseline, wd):
+    """The stand-in's seed-1 prove with a checkpoint directory, crashed by
+    `prover._span` raising as a phase starts (after the "cols" cut point,
+    then after the "h" one), then run again: the resumed proof must equal
+    the uninterrupted one byte for byte, and the checkpoint must clear."""
+    from ezkl_tpu_torch.plonk import prover
+
+    out = {}
+    for i, cut in enumerate(RESUME_CUTS):
+        root = pathlib.Path(wd) / f"resume{i}"
+        real = prover._span
+
+        def boom(msg, device=None, cut=cut):
+            if msg == cut:
+                raise RuntimeError(f"injected crash at {msg}")
+            real(msg, device)
+
+        prover._span = boom
+        crashed = False
+        try:
+            prover.create_proof(pk, srs, asg, seed=SEED, checkpoint_dir=str(root))
+        except RuntimeError:
+            crashed = True
+        finally:
+            prover._span = real
+        saved = sorted(p.name for p in root.glob("prove-*/*.npz"))
+        t0 = time.perf_counter()
+        proof = prover.create_proof(pk, srs, asg, seed=SEED, checkpoint_dir=str(root))
+        out[cut] = dict(crashed=crashed, saved=saved, resume_s=time.perf_counter() - t0,
+                        resumed_phases=sorted(k for k in prover.PHASE_SECONDS if "resumed" in k),
+                        equal=proof.to_json() == baseline,
+                        cleared=not list(root.glob("prove-*/*")))
+    emit({"phase": "resume", "k": K, "cuts": out})
+    for cut, r in out.items():
+        if not (r["crashed"] and r["saved"] and r["resumed_phases"] and r["equal"]
+                and r["cleared"]):
+            raise AssertionError(f"crash at {cut!r} and resume failed: {r}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3, continued: the kernels at the k = 20 path's widths
+# ---------------------------------------------------------------------------
+
+# conv2d_mnist at k = 20: commitments are fused MSMs of 2^20 points at c = 16
+# (W = 16 signed windows, B = 2^15 buckets) in window groups of 8 windows
+# (`msm.window_group`: 2^23 point-windows); the quotient's transforms run on
+# groups of 8 columns of the 2^23-point extended coset
+# (`prover.EXT_GROUP_ELEMENTS`); `gen_srs(20)` doubles 2^20 lanes.
+K20 = 20
+K20_EXT = 23
+K20_COLUMNS = 32                 # the widest commitment: 31 fixed columns padded to 32
+
+
+def check_k20_widths(dev, rng):
+    """K1-K9 at the widths the k = 20 path launches them. Each kernel runs
+    on the whole input; its plain version runs on the first and last lanes
+    (rows, groups, columns) of the same inputs, which the kernel computes
+    independently, and must agree bit for bit: an index or grid fault past
+    2^31 words or 2^16 blocks shows at the far end. Device ms (operands
+    from HBM) beside the bound of the whole launch. Returns name -> row."""
+    import torch
+    from ezkl_tpu_torch.fieldmath import curve, limbs
+    from ezkl_tpu_torch.fieldmath.spec import bn254_fr, bn254_fq
+    from ezkl_tpu_torch.kernels import msm, ntt, pcurve, pntt
+    from ezkl_tpu_torch.plonk import prover
+
+    FR, FQ = bn254_fr(), bn254_fq()
+    mm = IMAD_PER_MONT_MUL
+    n = 1 << K20
+    c = msm.default_window_bits(n)
+    W = len(msm._signed_windows(c))
+    G = msm.window_group(K20_COLUMNS, W, n)
+    S, B = MSM_S, 1 << (c - 1)
+    lanes = G * n // S
+    P, (ax, ay) = _pool(dev, rng)
+    zero = torch.zeros(8, dtype=torch.int32, device=dev)
+    ident = (zero, limbs.const(FQ, 1, device=dev), zero)
+    rows = {}
+
+    def rand_idx(*shape):
+        return torch_index(rng.integers(0, P.x.shape[1], size=shape), dev)
+
+    def points(*shape):
+        mask = torch_index(rng.random(shape) < 0.05, dev).bool()
+        mask.view(-1)[0] = mask.view(-1)[-1] = True
+        return list(_set(_gather(P, rand_idx(*shape)), mask, ident))
+
+    def ends(dim, m):
+        """The first and last m entries along `dim`."""
+        def pick(t):
+            size = t.shape[dim]
+            lo = min(m, size)
+            idx = torch.cat([torch.arange(lo), torch.arange(max(size - m, lo), size)])
+            return t.index_select(dim, idx.to(t.device))
+        return pick
+
+    def line(name, kern, plain, inputs, pick_in, pick_out, checked, nbytes, imad, reps,
+             **shape):
+        got = [pick_out(t) for t in _outputs(kern(*inputs))]
+        want = _outputs(plain(*[pick_in(t) for t in inputs]))
+        err = max_abs_err(got, want)
+        r = dict(path="conv2d_mnist k=20", max_abs_err=err, checked=checked, **shape,
+                 ms=device_ms(kern, inputs, reps=reps))
+        r["bound_ms"], r["bound_by"] = bound(nbytes, imad)
+        emit({"phase": "kernel", "kernel": name, **r})
+        if err:
+            raise AssertionError(f"{name} kernel != plain at the k = 20 width ({shape})")
+        rows[name] = r
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+
+    def field(count):
+        """count random Fr elements, Montgomery, made on the card."""
+        v = torch.randint(0, 1 << 31, (8, count), generator=gen, device=dev, dtype=torch.int64)
+        v[7] &= 0x0FFFFFFF                               # below the modulus
+        return limbs.to_mont(FR, v.to(torch.int32))
+
+    ext = 1 << K20_EXT
+    # K1: the quotient's products over one column of the extended coset
+    a, b = field(ext), field(ext)
+    line("mont_mul", lambda x, y: limbs._mont_mul_kernel(FR, x, y),
+         lambda x, y: limbs.mont_mul_plain(FR, x, y), [a, b], ends(-1, 4096), ends(-1, 4096),
+         "elements: first and last 4096",
+         3 * 32 * ext, mm * ext, 5, field=FR.name, n=ext, b="dense")
+    del a, b
+    # K1's scan: the 32-step blocks of a 2^20-element prefix product
+    # (`batch_inv` of a column), 2^15 rows
+    v = field(n).reshape(8, n // 32, 32)
+    line("mont_scan", lambda x: limbs._mont_scan_kernel(FR, x),
+         lambda x: limbs.seq_scan_mul_plain(FR, x), [v], ends(1, 256), ends(1, 256),
+         "rows: first and last 256", 64 * n,
+         31 * mm * (n // 32), 5, field=FR.name, rows=n // 32, steps=32)
+    del v
+    # K1's power: a Fermat inversion of one element, as at k = 14
+    e = FR.modulus - 2
+    products = limbs.pow_schedule(e)[3]
+    line("mont_pow", lambda x: limbs._mont_pow_kernel(FR, x, e),
+         lambda x: limbs.pow_static_plain(FR, x, e), [field(1)], ends(-1, 1), ends(-1, 1),
+         "all", 64,
+         products * mm, 20, field=FR.name, n=1, exponent="p-2")
+    # K2: one transform group of the quotient, 8 columns of 2^23 (3 passes);
+    # the plain version on the last column
+    cols = max(1, prover.EXT_GROUP_ELEMENTS // ext)
+    tw = ntt.twiddles(FR, K20_EXT, False, dev)
+    split = pntt.pass_split(K20_EXT)
+    x = field(cols * ext).reshape(8, cols, ext)
+
+    def passes(y, run):
+        for s0, r in split:
+            y = run(FR, y, tw, K20_EXT, s0, r)
+        return y
+    line("ntt_stages", lambda y: passes(y, pntt._stages_kernel),
+         lambda y: passes(y, pntt.stages_plain), [x], lambda t: t[:, -1:],
+         lambda t: t[:, -1:], "columns: the last", len(split) * 2 * 32 * cols * ext,
+         K20_EXT * (ext // 2) * cols * mm, 2,
+         field=FR.name, columns=cols, k=K20_EXT, passes=len(split), whole_ntt=True)
+    del x
+    # K4: one window group's packed scan, G windows of 2^20 points
+    x, y = _gather((ax, ay), rand_idx(S, lanes))
+    sn = torch_index(rng.integers(0, 2, size=(S, lanes)), dev).to(torch.int32)
+    line("scan_packed", pcurve._scan_packed_kernel, pcurve.scan_packed_plain, [x, y, sn],
+         ends(-1, 64), ends(-1, 64), "lanes: first and last 64",
+         (2 * 32 + 4 + 96) * S * lanes, 11 * mm * (S - 1) * lanes, 3,
+         windows=G, points=n, lanes=lanes, steps=S, team=pcurve.lane_team(lanes))
+    del x, y, sn
+    # K5: the block-total prefix of one group, G x 2^13 totals as 2^9 lanes
+    # of 128 steps
+    L5 = G * (n // S) // S
+    Pq = points(S, L5)
+    line("scan_steps", lambda *t: pcurve._scan_steps_kernel(curve.PointP(*t)),
+         lambda *t: pcurve.scan_steps_plain(curve.PointP(*t)), Pq, ends(-1, 8), ends(-1, 8),
+         "lanes: first and last 8",
+         6 * 32 * S * L5, 12 * mm * (S - 1) * L5, 5, variant="complete", lanes=L5, steps=S,
+         team=pcurve.lane_team(L5))
+    # K3: the bucket combine of one group, G x B lanes
+    L3 = G * B
+    inputs = points(L3) + points(L3)
+    line("point_add", lambda *t: pcurve._add_launch(t, pcurve.point_add_team(L3)),
+         lambda *t: pcurve.point_add_plain(curve.PointP(*t[:3]), curve.PointP(*t[3:])),
+         inputs, ends(-1, 256), ends(-1, 256), "lanes: first and last 256", 9 * 32 * L3,
+         12 * mm * L3, 5, lanes=L3, team=pcurve.point_add_team(L3))
+    del inputs
+    # K6: one group's bucket fold, G windows of B sums in chunks of 1,024
+    blk = 1024 if B >= 2048 else 128              # the MSM's fold block
+    Bp = -(-B // blk) * blk
+    Pf = points(G, Bp)
+    line("fold_lanes", lambda *t: pcurve._fold_lanes_kernel(curve.PointP(*t), blk),
+         lambda *t: pcurve.fold_lanes_plain(curve.PointP(*t), blk), Pf, ends(1, 1),
+         ends(1, 1), "groups: the first and the last",
+         (3 * (Bp // blk) + 3) * 32 * G * blk, 12 * mm * (Bp // blk - 1) * G * blk, 5,
+         variant="complete", groups=G, chunks=Bp // blk, blk=blk, lanes=G * blk,
+         team=pcurve.lane_team(G * blk))
+    # K3's tree: the 32 x 16 windows' partials after two halving adds
+    Gt, w = K20_COLUMNS * W, pcurve.TREE_MAX
+    line("point_reduce", lambda *t: pcurve._reduce_kernel(curve.PointP(*t)),
+         lambda *t: pcurve.reduce_pairwise_plain(curve.PointP(*t)), points(Gt, w), ends(1, 2),
+         ends(-1, 2), "groups: first and last 2",
+         3 * 32 * Gt * w + 96 * Gt, 12 * mm * (w - 1) * Gt, 5, groups=Gt, w=w)
+    # K7: 2^(c-1) * T_w over the 32 x 16 window totals
+    Pd = points(K20_COLUMNS * W)
+    line("dbl_pow2", lambda *t: pcurve._dbl_pow2_kernel(curve.PointP(*t), c - 1),
+         lambda *t: pcurve.dbl_pow2_plain(curve.PointP(*t), c - 1), Pd, ends(-1, 4),
+         ends(-1, 4), "lanes: first and last 4",
+         6 * 32 * K20_COLUMNS * W, (c - 1) * 8 * mm * K20_COLUMNS * W, 5,
+         lanes=K20_COLUMNS * W, c=c)
+    # K8: Horner over W windows at c = 16, 32 columns
+    V = points(W, K20_COLUMNS)
+    line("horner", lambda *t: pcurve._horner_kernel(curve.PointP(*t), c),
+         lambda *t: pcurve.horner_plain(curve.PointP(*t), c), V, ends(-1, 2), ends(-1, 2),
+         "columns: first and last 2",
+         3 * 32 * (W + 1) * K20_COLUMNS, W * (c * 8 + 12) * mm * K20_COLUMNS, 5,
+         windows=W, c=c, width=K20_COLUMNS)
+    # K9: gen_srs(20)'s doublings, 2^20 lanes
+    Pn = points(n)
+    line("point_dbl", lambda *t: pcurve._dbl_launch(t, pcurve.dbl_team(n)),
+         lambda *t: pcurve.point_dbl_plain(curve.PointP(*t)), Pn, ends(-1, 4096),
+         ends(-1, 4096), "lanes: first and last 4096",
+         6 * 32 * n, 8 * mm * n, 5, lanes=n, team=pcurve.dbl_team(n))
+    del Pn
+    # the first-use power tables of the k = 20 prove, built on the card by
+    # doubling (K1): the master twiddles of the 2^23 transforms (2^22
+    # entries) and the coset powers and extended points (2^23), each timed
+    # on its first build and held to host bigints at a sample of entries
+    tables = {}
+    for size, base in ((ext // 2, ntt.root_of_unity(FR, K20_EXT)), (ext, FR.generator)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pw = limbs.powers(FR, base, size, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        at = [0, 1, 2, size // 3, size - 1]
+        got = limbs.decode(FR, pw[:, torch_index(at, dev)])
+        ok = all(int(g) == pow(base, i, FR.modulus) for g, i in zip(got, at))
+        tables[f"2^{size.bit_length() - 1}"] = {"seconds": seconds, "sample_equal": ok}
+        if not ok:
+            raise AssertionError(f"limbs.powers at {size} differs from host powers")
+        del pw
+    emit({"phase": "kernel", "kernel": "powers", "path": "conv2d_mnist k=20", "tables": tables})
+    from ezkl_tpu_torch.kernels import build
+    build.reset_launches()        # comparison launches do not count
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the device Poseidon hash
 # ---------------------------------------------------------------------------
 
@@ -1160,6 +1657,13 @@ def poseidon(dev, rng):
         raise AssertionError("the device Poseidon launched no K1")
 
 
+def _shape(row):
+    return {k: v for k, v in row.items()
+            if k in ("field", "n", "rows", "lanes", "steps", "groups", "chunks", "blk", "c",
+                     "windows", "width", "columns", "team", "variant", "exponent", "k",
+                     "passes", "w", "b", "points")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1187,19 +1691,34 @@ def main() -> int:
     rows = check_kernels(dev, rng)
     t_kernels = time.perf_counter() - t0
     t0 = time.perf_counter()
-    srs, launches, srs_launches = prove(dev, rng)
+    k20_rows = check_k20_widths(dev, rng)
+    t_k20 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srs, launches, srs_launches, (pk, asg, baseline) = prove(dev, rng)
     t_prove = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        resume(dev, pk, srs, asg, baseline, wd)
+    del pk, asg
+    t_resume = time.perf_counter() - t0
     t0 = time.perf_counter()
     unfused_launches = check_outputs(dev, rng, srs)
     t_check = time.perf_counter() - t0
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as wd:
-        graph_launches, graph_srs_launches = graph(dev, wd)
-    t_graph = time.perf_counter() - t0
+        wd = pathlib.Path(wd)
+        t0 = time.perf_counter()
+        graph_launches, graph_srs_launches = graph(dev, wd / GRAPH_MODEL)
+        t_graph = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        conv_launches, conv_srs_launches = conv(
+            dev, wd / CONV_MODEL, (wd / GRAPH_MODEL / "proof.json", wd / GRAPH_MODEL / "vk.key"))
+        t_conv = time.perf_counter() - t0
     t0 = time.perf_counter()
     poseidon(dev, rng)
-    emit({"phase": "times", "kernels_s": t_kernels, "prove_phase_s": t_prove,
-          "check_s": t_check, "graph_s": t_graph, "poseidon_s": time.perf_counter() - t0})
+    emit({"phase": "times", "kernels_s": t_kernels, "k20_kernels_s": t_k20,
+          "prove_phase_s": t_prove, "resume_s": t_resume, "check_s": t_check,
+          "graph_s": t_graph, "conv2d_mnist_s": t_conv,
+          "poseidon_s": time.perf_counter() - t0})
 
     # launches: K1 (each form) to K8 from the graph phase's warm prove; K9
     # from its gen_srs, K9's path since the fused MSM (K7, K8) took over the
@@ -1207,6 +1726,8 @@ def main() -> int:
     paths = {name: ("graph warm prove", graph_launches[name]) for name in graph_launches}
     paths["point_dbl"] = ("graph gen_srs", graph_srs_launches["point_dbl"])
     standin = dict(launches, point_dbl=srs_launches["point_dbl"])
+    # the second path: conv2d_mnist's warm k = 20 prove, K9 in gen_srs(20)
+    k20 = dict(conv_launches, point_dbl=conv_srs_launches["point_dbl"])
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "ok": rows[name]["max_abs_err"] == 0,
@@ -1218,10 +1739,13 @@ def main() -> int:
          "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
          "library_ms": None,
-         "shape": {k: v for k, v in rows[name].items()
-                   if k in ("field", "n", "rows", "lanes", "steps", "groups", "chunks", "blk",
-                            "c", "windows", "width", "columns", "team", "variant",
-                            "exponent", "k", "passes", "w", "b")}}
+         "shape": _shape(rows[name]),
+         "k20": {"path": "conv2d_mnist warm prove" if name != "point_dbl" else
+                 "conv2d_mnist gen_srs(20)", "launches": k20[name],
+                 "ms": k20_rows[name]["ms"], "bound_ms": k20_rows[name]["bound_ms"],
+                 "bound_by": k20_rows[name]["bound_by"],
+                 "max_abs_err": k20_rows[name]["max_abs_err"],
+                 "checked": k20_rows[name]["checked"], "shape": _shape(k20_rows[name])}}
         for name, (src, rep) in KERNEL_META.items()],
         "create_proof_point_dbl_launches": launches["point_dbl"],
         "unfused_msm_point_dbl_launches": unfused_launches["point_dbl"]})

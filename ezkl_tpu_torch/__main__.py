@@ -10,12 +10,14 @@
     python -m ezkl_tpu_torch setup -M model.compiled -D input.json
     python -m ezkl_tpu_torch prove -M model.compiled -D input.json
     python -m ezkl_tpu_torch verify
+    python -m ezkl_tpu_torch aggregate --proof-paths a.json b.json --vk-paths a.key b.key
+    python -m ezkl_tpu_torch verify-aggr --vk-paths a.key b.key
     python -m ezkl_tpu_torch table -M network.onnx
     python -m ezkl_tpu_torch gen-random-data -M network.onnx -D input.json
 
 Every subcommand takes `--device {cuda,cpu}` (default: the card) and
-`--log-level`. The aggregation and EVM subcommands of the JAX package's
-CLI wait for the port's `plonk/aggregate.py` and `evm/`.
+`--log-level`. The EVM subcommands of the JAX package's CLI wait for the
+port's `evm/`.
 """
 
 from __future__ import annotations
@@ -123,6 +125,12 @@ def main(argv=None):
     p = cmd("swap-proof-commitments")
     p.add_argument("--witness-path", default="witness.json")
     p = cmd("gen-vk")
+    p = cmd("aggregate")
+    p.add_argument("--proof-paths", nargs="+", default=["proof.json"])
+    p.add_argument("--vk-paths", nargs="+", default=["vk.key"])
+    p = cmd("verify-aggr")
+    p.add_argument("--aggr-path", default="proof_aggr.json")
+    p.add_argument("--vk-paths", nargs="+", default=["vk.key"])
     p = cmd("table")
     _add_run_args(p)
     p = cmd("gen-random-data")
@@ -188,6 +196,17 @@ def main(argv=None):
     elif c == "gen-vk":
         api.gen_vk_from_pk(ns.pk_path, ns.vk_path, device=dev)
         print(f"vk written to {ns.vk_path}")
+    elif c == "aggregate":
+        vkp = ns.vk_paths if len(ns.vk_paths) > 1 else ns.vk_paths[0]
+        agg = api.aggregate(ns.proof_paths, vkp,
+                            ns.output or "proof_aggr.json", ns.srs_path)
+        print(f"aggregated {agg['num_proofs']} proofs -> "
+              f"{ns.output or 'proof_aggr.json'} (one pairing to verify)")
+    elif c == "verify-aggr":
+        vkp = ns.vk_paths if len(ns.vk_paths) > 1 else ns.vk_paths[0]
+        ok = api.verify_aggr(ns.aggr_path, vkp, ns.srs_path, device=dev)
+        print("aggregate verified" if ok else "AGGREGATE VERIFICATION FAILED")
+        sys.exit(0 if ok else 1)
     elif c == "table":
         print(api.table(ns.model, _run_args_from(ns)))
     elif c == "gen-random-data":

@@ -5,10 +5,11 @@ either package loads in the other.
 
 Every function that touches the device takes `device=None`, which means the
 card; `device="cpu"` runs the plain versions of the kernels. The graph
-layer (settings, compile, the layout of a witness) runs on the host.
-`aggregate`, `verify_aggr` and the EVM functions (`create_evm_verifier`,
-`deploy_evm`, `verify_evm`, `encode_evm_calldata`) wait for the port's
-`plonk/aggregate.py` and `evm/`.
+layer (settings, compile, the layout of a witness) and aggregation run
+on the host. `prove` also takes `checkpoint_dir` (restartable phases,
+`plonk/prover.py` `_ProveCheckpoint`; EZKL_TPU_CKPT_DIR sets it too). The
+EVM functions (`create_evm_verifier`, `deploy_evm`, `verify_evm`,
+`encode_evm_calldata`) wait for the port's `evm/`.
 
 Artifact files:
   settings.json    GraphSettings (run_args + sizing)
@@ -16,6 +17,7 @@ Artifact files:
   witness.json     quantized inputs/outputs (field hex) + rescaled floats
   pk.key / vk.key  stable no-pickle key formats (plonk/serde.py)
   proof.json       proof (points/evals/instances, hex JSON)
+  proof_aggr.json  aggregate of N proofs (plonk/aggregate.py)
   kzg{k}.srs       SRS (see plonk/srs.py)
 """
 
@@ -319,16 +321,19 @@ def _make_transcript(kind):
 
 
 def prove(compiled_path, input_path, pk_path="pk.key", srs_path=None,
-          proof_path="proof.json", transcript=None, seed=None, device=None):
+          proof_path="proof.json", transcript=None, seed=None, device=None,
+          checkpoint_dir=None):
     """seed: deterministic blinding for byte-reproducible proofs
     (reference det-prove, `src/pfsys/mod.rs:436-439`); also settable via
-    EZKL_TPU_DET_SEED."""
+    EZKL_TPU_DET_SEED. checkpoint_dir: save the prove's two cut points
+    there and resume from them (needs a seed; EZKL_TPU_CKPT_DIR sets it
+    too, as in the JAX package, whose `prove` has no such argument)."""
     gc = load_compiled(compiled_path)
     arrays = _reshape_for(gc, _load_input(input_path, gc.model.input_scales()))
     s = _srs_for(gc, srs_path, device)
     pk = serde_mod.load_pk(pk_path, device)
-    proof, _ = gc.prove(arrays, s, pk=pk,
-                        transcript=_make_transcript(transcript), seed=seed)
+    proof, _ = gc.prove(arrays, s, pk=pk, transcript=_make_transcript(transcript),
+                        seed=seed, checkpoint_dir=checkpoint_dir)
     pathlib.Path(proof_path).write_text(proof.to_json())
     return proof
 
@@ -347,6 +352,47 @@ def verify(proof_path="proof.json", vk_path="vk.key", srs_path=None,
                                    transcript=_make_transcript(transcript))
     except (KeyError, IndexError, ValueError, AssertionError):
         return False  # malformed proof = invalid
+
+
+def aggregate(proof_paths, vk_paths, output="proof_aggr.json",
+              srs_path=None) -> dict:
+    """Fold N verified proofs into one aggregate artifact whose check is a
+    SINGLE pairing (reference `aggregate`, `src/execute.rs`; the native RLC
+    fold of plonk/aggregate.py). Host-only: `srs_path` is not read, as in
+    the JAX package.
+
+    vk_paths: one per proof, or a single path reused for all proofs."""
+    from .plonk import aggregate as aggr_mod
+    if isinstance(vk_paths, (str, pathlib.Path)):
+        vk_paths = [vk_paths] * len(proof_paths)
+    vks = [serde_mod.load_vk(p) for p in vk_paths]
+    proofs = [Proof.from_json(pathlib.Path(p).read_text()) for p in proof_paths]
+    agg = aggr_mod.aggregate(vks, proofs)
+    pathlib.Path(output).write_text(json.dumps(agg))
+    return agg
+
+
+def verify_aggr(aggr_path="proof_aggr.json", vk_paths="vk.key",
+                srs_path=None, device=None) -> bool:
+    """Verify an aggregate artifact (one pairing for all inner proofs). The
+    checks run on the host; the SRS (for its G2 points) loads onto
+    `device`."""
+    from .plonk import aggregate as aggr_mod
+    agg = json.loads(pathlib.Path(aggr_path).read_text())
+    n = agg.get("num_proofs", 0)
+    if isinstance(vk_paths, (str, pathlib.Path)):
+        vk_paths = [vk_paths] * n
+    vks = [serde_mod.load_vk(p) for p in vk_paths]
+    if not vks:
+        return False
+    if srs_path and pathlib.Path(srs_path).exists():
+        s = srsmod.load(srs_path, device)
+    else:
+        s = srsmod.get_or_create(vks[0].k, device)
+    try:
+        return aggr_mod.verify_aggregated(vks, agg, s.g2, s.s_g2)
+    except (KeyError, IndexError, ValueError, AssertionError):
+        return False
 
 
 def split_model(model_path, input_path=None, parts: int = 2,

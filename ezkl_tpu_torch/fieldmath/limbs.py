@@ -602,19 +602,21 @@ def powers_dynamic(spec: FieldSpec, base: torch.Tensor, n: int) -> torch.Tensor:
     return prefix_scan_mul(spec, v)
 
 
-def host_powers(spec: FieldSpec, w: int, n: int) -> np.ndarray:
-    """[w^0 .. w^(n-1)] as host (8, n) Montgomery words (vectorized bigints:
-    log2(n) doubling rounds P[m:2m] = P[:m] * w^m)."""
-    p = spec.modulus
-    pw = np.array([1], dtype=object)
-    while len(pw) < n:
-        m = len(pw)
-        pw = np.concatenate([pw, (pw * pow(w, m, p)) % p])
-    return _ints_to_words((pw[:n] * spec.r) % p)
-
-
 def powers(spec: FieldSpec, base_int: int, n: int, device=None) -> torch.Tensor:
-    """[base^0, .., base^(n-1)] as (8, n) Montgomery limbs. The base is a
-    host constant, so the table is built with host bigints (the same
-    canonical values the JAX package's device scan yields)."""
-    return to_device(host_powers(spec, base_int % spec.modulus, n), device)
+    """[base^0, .., base^(n-1)] as (8, n) Montgomery limbs, built on `device`
+    by doubling: P[m:2m] = P[:m] * base^m, one `mont_mul` by a host
+    constant per doubling (K1 on the card; log2(n) launches). Montgomery
+    products are canonical, so these are the words of host bigints and of
+    the JAX package's device scan, and at 2^23 no host loop over bigints
+    holds the first prove on a key."""
+    dev = device_of(device)
+    base = base_int % spec.modulus
+    out = torch.empty((NWORDS, n), dtype=torch.int32, device=dev)
+    out[:, :1] = const(spec, 1, device=dev)[:, None]
+    m = 1
+    while m < n:
+        t = min(m, n - m)
+        step = const(spec, pow(base, m, spec.modulus), device=dev)[:, None]
+        out[:, m:m + t] = mont_mul(spec, out[:, :t], step)
+        m *= 2
+    return out

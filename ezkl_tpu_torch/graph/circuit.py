@@ -275,15 +275,16 @@ class GraphCircuit:
         return pk, asg
 
     def prove(self, input_arrays, srs: srsmod.SRS, pk=None, transcript=None,
-              seed=None, device=None):
-        """Proves on the device of `pk` (or, keyed here, on `device`)."""
+              seed=None, device=None, checkpoint_dir=None):
+        """Proves on the device of `pk` (or, keyed here, on `device`);
+        `checkpoint_dir` as in `prover.create_proof`."""
         if pk is None:
             pk, asg = self.setup(input_arrays, srs, device=device)
         else:
             cfg, ctx, _ = self.forward(input_arrays)
             asg = ctx.finalize()
-        return prover.create_proof(pk, srs, asg, transcript=transcript,
-                                   seed=seed), pk
+        return prover.create_proof(pk, srs, asg, transcript=transcript, seed=seed,
+                                   checkpoint_dir=checkpoint_dir), pk
 
     @staticmethod
     def verify(vk, srs: srsmod.SRS, proof, transcript=None) -> bool:

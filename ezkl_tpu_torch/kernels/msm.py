@@ -18,9 +18,10 @@ Two pipelines compute the same sums; both run on either device:
 
 Both use signed window digits, a stable sort of the digits, a gather of the
 points into digit order, and bucket sums read at the bucket boundaries
-(telescoped: sum_b b*S_b = B*T - sum_b E[s_b]). The reference walks the
-windows one group at a time; a group only changes the batching, not the
-result, so here all C*W windows of a call ride every kernel as one batch.
+(telescoped: sum_b b*S_b = B*T - sum_b E[s_b]). The fused pipeline walks
+the windows in groups, as the reference does: a group bounds the memory of
+the sort, gather and scan (`window_group`), and a group only changes the
+batching, not the result.
 
 The result is a projective point; the two pipelines agree as affine points,
 and the fused one equals the JAX package's fused MSM bit for bit. Commitments
@@ -40,6 +41,12 @@ from . import pcurve
 
 _BLOCK = 32      # sequential steps per scan level of the unfused pipeline
 _FUSED_S = 128   # local-scan steps per lane of the fused pipeline
+# point-windows (windows x points) of one group of the fused MSM: a group
+# gathers, sorts and scans its windows' points together, and at 2^23 its
+# working set stays under ~2 GiB on the card (the gathered x, y: 512 MiB;
+# K4's projective prefix: 768 MiB; the int64 digits, sort keys and indices:
+# ~320 MiB). Every commitment of a k <= 14 prove fits one group.
+GROUP_POINTS = 1 << 23
 
 
 def default_window_bits(n: int) -> int:
@@ -159,12 +166,13 @@ def _gather_last(p: PointP, idx: torch.Tensor) -> PointP:
 
 
 def msm(points: PointP, scalars: torch.Tensor, c: int | None = None,
-        affine: bool = False) -> PointP:
+        affine: bool = False, group: int | None = None) -> PointP:
     """sum_i scalars[i] * points[i] by the fused MSM; points batch (N,), N a
     power of two (identity lanes (0:1:0) allowed; `affine=True` asserts
     z == 1 on every other lane), scalars (8, N) RAW Fr limbs. Returns a
     projective PointP of batch ()."""
-    return msm_multi(points, scalars[None], c=c, affine=affine).map(lambda a: a[..., 0])
+    return msm_multi(points, scalars[None], c=c, affine=affine,
+                     group=group).map(lambda a: a[..., 0])
 
 
 def _prefix_points_fused(p: PointP) -> PointP:
@@ -188,26 +196,28 @@ def _prefix_points_fused(p: PointP) -> PointP:
     return comb.map(lambda a: a.reshape(p.x.shape))
 
 
-def msm_multi(points: PointP, scalars: torch.Tensor, c: int | None = None,
-              affine: bool = False) -> PointP:
-    """Batched-column MSM by the fused pipeline: out[t] = sum_i scalars[t, i]
-    * points[i]. scalars: (C, 8, N) RAW limbs over a shared point set, N a
-    power of two; returns PointP of batch (C,).
+def window_group(C: int, W: int, n: int) -> int:
+    """Windows per group of `msm_multi` for C columns of W windows over n
+    points: every window at once while C * W * n <= GROUP_POINTS, else as
+    many whole columns as fit, else the largest divisor of W that fits (a
+    column's windows split, as the JAX package's `_fused_group` splits
+    them; `msm.py:460-467`)."""
+    if C * W * n <= GROUP_POINTS:
+        return C * W
+    if W * n <= GROUP_POINTS:
+        return W * (GROUP_POINTS // (W * n))
+    g = max(1, GROUP_POINTS // n)
+    while W % g:
+        g -= 1
+    return g
 
-    affine=True asserts z == 1 on every point but the identity lanes of
-    `pad_msm_inputs` (SRS bases): the scan then gathers only (x, y) and runs
-    mixed adds (K4), which reads an identity lane's pair (0, 1) as the
-    identity (the JAX package adds it as a point, and its sum is wrong)."""
-    C, _, n = scalars.shape
-    assert (n & (n - 1)) == 0, "msm: pad N to a power of two"
+
+def _group_sums(points: PointP, d: torch.Tensor, ng: torch.Tensor, c: int, affine: bool):
+    """One group of windows, digits d (G, N) and signs ng (G, N): the
+    window totals T_w (8, G) and the fold partials of sum_b E[s_b]
+    (8, G, fold_blk), which `reduce_pairwise` finishes."""
+    G, n = d.shape
     dev = points.device
-    if c is None:
-        c = default_window_bits(n)
-    digits, negs = extract_digits_signed(scalars.movedim(0, 1), c)   # (W, C, N)
-    W = digits.shape[0]
-    G = C * W                                                   # window g = col*W + w
-    d = digits.movedim(1, 0).reshape(G, n)
-    ng = negs.movedim(1, 0).reshape(G, n)
     n_bound = 1 << (c - 1)
     S = min(_FUSED_S, n)
     lanes = G * (n // S)                 # scan lane (g, i): window g, points [i*S, (i+1)*S)
@@ -217,6 +227,7 @@ def msm_multi(points: PointP, scalars: torch.Tensor, c: int | None = None,
     # gather straight into the step-major layout (8, S, lanes) of the scan
     idx = order.reshape(G, n // S, S).permute(2, 0, 1).reshape(S, lanes)
     sn_t = sn.reshape(G, n // S, S).permute(2, 0, 1).reshape(S, lanes)
+    del order, sn
     if affine:
         local = pcurve.scan_packed_steps(points.x[:, idx], points.y[:, idx],
                                          sn_t.to(torch.int32))
@@ -224,6 +235,7 @@ def msm_multi(points: PointP, scalars: torch.Tensor, c: int | None = None,
         sp = points.map(lambda a: a[:, idx])
         sp = PointP(sp.x, limbs.select(sn_t, curve.neg(sp).y, sp.y), sp.z)
         local = pcurve.scan_steps(sp)
+    del idx, sn_t
     tot_incl = _prefix_points_fused(local.map(lambda a: a[:, S - 1].reshape(NWORDS, G, n // S)))
     t_w = tot_incl.map(lambda a: a[..., -1])                    # (8, G)
 
@@ -235,6 +247,7 @@ def msm_multi(points: PointP, scalars: torch.Tensor, c: int | None = None,
     g_lane = torch.arange(G, device=dev)[:, None] * (n // S)
     at = (safe % S) * lanes + g_lane + safe // S
     e_loc = local.map(lambda a: a.reshape(NWORDS, -1)[:, at])   # (8, G, B)
+    del local
     blk = safe // S
     e_off = _gather_last(tot_incl, blk.clamp(min=1) - 1)
     e_off = curve.select_point(blk == 0, curve.identity(blk.shape, dev), e_off)
@@ -245,13 +258,63 @@ def msm_multi(points: PointP, scalars: torch.Tensor, c: int | None = None,
     pad_to = -(-n_bound // fold_blk) * fold_blk
     idp = curve.identity((G, pad_to - n_bound), dev)
     e_pts = PointP(*(torch.cat([a, b], dim=-1) for a, b in zip(e_pts, idp)))
-    f_w = pcurve.reduce_pairwise(pcurve.fold_lanes(e_pts, blk=fold_blk))
+    return t_w, pcurve.fold_lanes(e_pts, blk=fold_blk)
+
+
+def msm_multi(points: PointP, scalars: torch.Tensor, c: int | None = None,
+              affine: bool = False, group: int | None = None) -> PointP:
+    """Batched-column MSM by the fused pipeline: out[t] = sum_i scalars[t, i]
+    * points[i]. scalars: (C, 8, N) RAW limbs over a shared point set, N a
+    power of two; returns PointP of batch (C,).
+
+    The windows (g = column * W' + window) run in groups of `group` windows
+    (default `window_group`), each group sorted, gathered, scanned and
+    folded on its own; the window sums and the Horner combine then run once
+    over all windows. A group of fewer windows than W splits each column,
+    whose W windows are padded with zero windows to a multiple of `group`
+    at the top (W' >= W), as in the JAX package (`msm.py:524-531`); a larger
+    group holds group // W whole columns (W' = W), which the JAX package
+    does not form. A window's sums do not depend on its group, so at one W'
+    the words do not either.
+
+    affine=True asserts z == 1 on every point but the identity lanes of
+    `pad_msm_inputs` (SRS bases): the scan then gathers only (x, y) and runs
+    mixed adds (K4), which reads an identity lane's pair (0, 1) as the
+    identity (the JAX package adds it as a point, and its sum is wrong)."""
+    C, _, n = scalars.shape
+    assert (n & (n - 1)) == 0, "msm: pad N to a power of two"
+    if c is None:
+        c = default_window_bits(n)
+    W = len(_signed_windows(c))
+    G = group if group is not None else window_group(C, W, n)
+    assert G >= 1, f"msm: group={G}"
+    cols = max(1, G // W)                # columns whose digits are extracted together
+    Wp = W if G >= W else -(-W // G) * G
+    if G > W:
+        G = cols * W
+    t_ws, parts = [], []
+    for c0 in range(0, C, cols):
+        mags, negs = extract_digits_signed(scalars[c0:c0 + cols].movedim(0, 1), c)
+        if Wp != W:                      # zero windows on top of each column
+            pad = (Wp - W,) + tuple(mags.shape[1:])
+            mags = torch.cat([mags, mags.new_zeros(pad)])
+            negs = torch.cat([negs, negs.new_zeros(pad)])
+        d = mags.movedim(1, 0).reshape(-1, n)                   # (cols * W', N)
+        ng = negs.movedim(1, 0).reshape(-1, n)
+        del mags, negs
+        for g0 in range(0, d.shape[0], G):
+            t_w, part = _group_sums(points, d[g0:g0 + G], ng[g0:g0 + G], c, affine)
+            t_ws.append(t_w)
+            parts.append(part)
+    t_w = PointP(*(torch.cat([t[i] for t in t_ws], dim=1) for i in range(3)))
+    part = PointP(*(torch.cat([p[i] for p in parts], dim=1) for i in range(3)))
+    f_w = pcurve.reduce_pairwise(part)                          # (8, C * W')
 
     # V_w = B*T_w - F_w = sum_b b * bucket_b over this window's B = 2^(c-1)
     # buckets; Horner over the windows, MSB first
     u = pcurve.dbl_pow2(t_w, c - 1)
-    v = curve.add(u, curve.neg(f_w)).map(lambda a: a.reshape(NWORDS, C, W))
-    v_msb = v.map(lambda a: a.flip(-1).movedim(-1, 1).contiguous())    # (8, W, C)
+    v = curve.add(u, curve.neg(f_w)).map(lambda a: a.reshape(NWORDS, C, Wp))
+    v_msb = v.map(lambda a: a.flip(-1).movedim(-1, 1).contiguous())    # (8, W', C)
     return pcurve.horner_combine(v_msb, c)
 
 

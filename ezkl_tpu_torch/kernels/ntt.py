@@ -5,9 +5,9 @@ the log2(n) butterfly stages in `pntt.pass_split(log2 n)` passes of up to 10
 stages, each pass one launch of K2 (`pntt.stages`) over the whole array, on
 either device. The JAX package's four-step branch (`ntt.py:163-172`) was a
 TPU layout choice and is not ported. The one twiddle table of a size and
-direction, [w^0 .. w^(n/2 - 1)], is host bigints, moved to the device once
-per (field, size, direction, device); every stage reads its twiddles from
-it.
+direction, [w^0 .. w^(n/2 - 1)], is built on the device once per (field,
+size, direction, device) by `limbs.powers`; every stage reads its twiddles
+from it.
 """
 
 from __future__ import annotations
@@ -31,12 +31,6 @@ def root_of_unity(spec: FieldSpec, k: int, inverse: bool = False) -> int:
     return w
 
 
-@functools.lru_cache(maxsize=64)
-def _twiddles_host(spec: FieldSpec, k: int, inverse: bool) -> np.ndarray:
-    """Master table [w^0 .. w^(n/2 - 1)] as host (8, n/2) Montgomery words."""
-    return limbs.host_powers(spec, root_of_unity(spec, k, inverse), max((1 << k) // 2, 1))
-
-
 _DEV_MEMO: dict = {}
 
 
@@ -52,7 +46,8 @@ def dev_cached(key, make) -> torch.Tensor:
 def twiddles(spec: FieldSpec, k: int, inverse: bool, device) -> torch.Tensor:
     """The master table [w^0 .. w^(2^(k-1) - 1)] on `device`, (8, 2^(k-1))."""
     return dev_cached(("tw", spec, k, inverse, str(device)),
-                      lambda: limbs.to_device(_twiddles_host(spec, k, inverse), device))
+                      lambda: limbs.powers(spec, root_of_unity(spec, k, inverse),
+                                           max((1 << k) // 2, 1), device))
 
 
 @functools.lru_cache(maxsize=64)
@@ -97,7 +92,7 @@ def _coset_powers(spec: FieldSpec, n: int, inverse: bool, device) -> torch.Tenso
     multiplicative generator) as (8, n) Montgomery limbs."""
     g = spec.generator if not inverse else pow(spec.generator, -1, spec.modulus)
     return dev_cached(("coset", spec, n, inverse, str(device)),
-                      lambda: limbs.to_device(limbs.host_powers(spec, g, n), device))
+                      lambda: limbs.powers(spec, g, n, device))
 
 
 def coset_ntt(spec: FieldSpec, coeffs: torch.Tensor) -> torch.Tensor:

@@ -42,6 +42,12 @@ class Domain:
 
     # -- transforms ---------------------------------------------------------
 
+    def lagrange_to_coeff(self, v):
+        return nttmod.intt(self.spec, v)
+
+    def coeff_to_lagrange(self, v):
+        return nttmod.ntt(self.spec, v)
+
     def coeff_to_extended(self, v):
         """coeffs (8, *batch, n) -> evals over the extended coset."""
         pad = torch.zeros(v.shape[:-1] + (self.n_ext - v.shape[-1],),
@@ -80,6 +86,18 @@ class Domain:
     def vanishing_inv_on_extended(self, device=None) -> torch.Tensor:
         """1 / Z_H over the extended coset (never zero there)."""
         return self._periodic(True, limbs.device_of(device))
+
+    # -- polynomial evaluation at a host point ------------------------------
+
+    def eval_coeff_at(self, coeffs, x: int) -> int:
+        """Horner evaluation of an (8, n) coefficient poly (Montgomery) at
+        the host scalar x, on the host (the prover evaluates in batches on
+        the device instead, `prover.ProverKernels.stage_eval`)."""
+        p = self.spec.modulus
+        acc = 0
+        for c in reversed(list(limbs.decode(self.spec, coeffs))):
+            acc = (acc * x + int(c)) % p
+        return acc
 
 
 @functools.lru_cache(maxsize=None)

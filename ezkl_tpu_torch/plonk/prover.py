@@ -14,13 +14,19 @@ seeded proof is byte-identical to the reference's:
 The reference's five jitted stage functions (`ProverKernels`, :210-582) are
 plain functions here: PyTorch runs eagerly, and every field multiply, NTT
 stage and point operation on the card is one launch of a hand-written
-kernel. Not ported: `_ProveCheckpoint` (restartable phases for k >= 20).
+kernel. The quotient (phase 5) bounds its device memory for k = 20 on one
+card: the columns reach the extended coset in groups of columns, and each
+term is folded into a running sum as it is built. `_ProveCheckpoint` makes
+the phases restartable, with the JAX package's directory key and file
+layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os as _os
+import pathlib
 import time as _time
 from collections import defaultdict
 
@@ -44,7 +50,16 @@ FR = bn254_fr()
 # phase name -> seconds of the last create_proof (read by chip_smoke.py);
 # each span ends at the next `_span` call or at "done"
 PHASE_SECONDS: dict = {}
+# phase name -> the card's peak allocated bytes during the phase (CUDA only:
+# `torch.cuda.max_memory_allocated`, its peak reset at each phase start;
+# "(before)": the peak since the caller's last reset, up to the first phase;
+# so the largest value is the peak of the caller's span)
+PHASE_PEAK_BYTES: dict = {}
 _PHASE = None          # (name, start time, profiler range) of the running phase
+# extended-coset elements a group of columns of the quotient transforms
+# together (8 columns of 2^23 at k = 20: 2 GiB a copy; every column of a
+# k <= 14 prove in one group)
+EXT_GROUP_ELEMENTS = 1 << 26
 
 
 def _span(msg: str, device=None):
@@ -53,14 +68,22 @@ def _span(msg: str, device=None):
     a `torch.profiler` range of the same name
     (`tools/profile_torch_prove.py` reads it)."""
     global _PHASE
-    if device is not None and device.type == "cuda":
+    cuda = device is not None and device.type == "cuda"
+    if cuda:
         torch.cuda.synchronize(device)
     now = _time.perf_counter()
-    if _PHASE is not None:
+    opened = _PHASE is not None
+    if opened:
         PHASE_SECONDS[_PHASE[0]] = now - _PHASE[1]
+        if cuda:
+            PHASE_PEAK_BYTES[_PHASE[0]] = torch.cuda.max_memory_allocated(device)
         _PHASE[2].__exit__(None, None, None)
     _PHASE = None
     if msg != "done":
+        if cuda:
+            if not opened:       # the caller's peak up to the first phase
+                PHASE_PEAK_BYTES["(before)"] = torch.cuda.max_memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
         span = torch.profiler.record_function(msg)
         span.__enter__()
         _PHASE = (msg, now, span)
@@ -188,8 +211,8 @@ class ProverKernels:
         # all needed basis vectors in ONE batched transform: l_0, l_a, and
         # the blinding rows (a, n)
         bases = _lagrange_bases_ext(dom, (0, a) + tuple(range(a + 1, n)), dev)
-        self.l0_ext = bases[:, 0]
-        self.llast_ext = bases[:, 1]                      # closing row basis
+        self.l0_ext = bases[:, 0].clone()
+        self.llast_ext = bases[:, 1].clone()              # closing row basis
         self.one_ext = limbs.ones_mont(FR, (ext,), dev)
         # not_active = 1 - sum_{i in [a, n)} l_i: masks the running
         # constraints off the closing + blinding rows
@@ -197,6 +220,7 @@ class ProverKernels:
         for i in range(bases.shape[1] - 2):
             blind_sum = limbs.add(FR, blind_sum, bases[:, 2 + i])
         self.not_last = limbs.sub(FR, self.one_ext, blind_sum)
+        del bases, blind_sum
 
         self.term_descs = ([("gate", i) for i in range(len(cs.gates))]
                            + sum(([("perm_run", ci), ("perm_bound", ci)]
@@ -283,9 +307,12 @@ class ProverKernels:
 
     # ---- stage C: quotient over the extended coset -----------------------
     def stage_to_ext(self, advice_l, fixed_l, instance_l, z_list, phi_list, m_all, shz_list):
-        """Every column stack through one batched transform to the extended
-        coset. (The reference pads the stack to a power of two to reuse one
-        compiled executable; results do not depend on it, so no padding.)"""
+        """Every column stack to the extended coset, in groups of columns
+        of at most EXT_GROUP_ELEMENTS extended elements (one group below
+        k = 15) written into one (C, 8, n_ext) tensor, so that a transform's
+        copies hold one group, not every column. (The reference pads the
+        stack to a power of two to reuse one compiled executable; results
+        do not depend on it, so no padding.)"""
         cs, dev = self.cs, self.dev
         stacks = ([s for s, nz in ((fixed_l, cs.num_fixed), (advice_l, cs.num_advice),
                                    (instance_l, cs.num_instance),
@@ -295,8 +322,14 @@ class ProverKernels:
         empty = torch.zeros((0, NWORDS, self.ext), dtype=torch.int32, device=dev)
         if not stacks:
             return {FIXED: empty, ADVICE: empty, INSTANCE: empty}, empty, [], [], [], []
-        big = torch.cat(stacks, dim=0).movedim(0, 1)             # (8, C, n)
-        ext_all = self.dom.coeff_to_extended(nttmod.intt(FR, big)).movedim(1, 0)
+        rows = [(s, i) for s in stacks for i in range(s.shape[0])]
+        ext_all = torch.empty((len(rows), NWORDS, self.ext), dtype=torch.int32, device=dev)
+        per = max(1, EXT_GROUP_ELEMENTS // self.ext)
+        for c0 in range(0, len(rows), per):
+            big = torch.stack([s[i] for s, i in rows[c0:c0 + per]], dim=1)    # (8, g, n)
+            ext_all[c0:c0 + per] = self.dom.coeff_to_extended(
+                nttmod.intt(FR, big)).movedim(1, 0)
+            del big
         off = 0
 
         def take(cnt):
@@ -389,28 +422,30 @@ class ProverKernels:
         rhs = limbs.sub(FR, mul(t_e, sum_except), mul(m_e, prod_f))
         return mul(self.not_last, limbs.sub(FR, lhs, rhs))
 
-    def stage_combine(self, terms, y):
-        n, T = self.n, len(terms)
-        ypows = limbs.powers_dynamic(FR, y, T)
-        scaled = [limbs.mont_mul(FR, t, ypows[:, T - 1 - i][:, None])
-                  for i, t in enumerate(terms)]
-        while len(scaled) > 1:
-            nxt = [limbs.add(FR, scaled[i], scaled[i + 1])
-                   for i in range(0, len(scaled) - 1, 2)]
-            if len(scaled) % 2:
-                nxt.append(scaled[-1])
-            scaled = nxt
-        h_ext = limbs.mont_mul(FR, scaled[0], self.dom.vanishing_inv_on_extended(self.dev))
+    def stage_combine(self, acc):
+        """h = acc / Z_H over the extended coset, back to coefficients, split
+        into n-sized pieces; acc is the terms' sum_i y^(T-1-i) * t_i."""
+        n = self.n
+        h_ext = limbs.mont_mul(FR, acc, self.dom.vanishing_inv_on_extended(self.dev))
         h_coeff = self.dom.extended_to_coeff(h_ext)
         return [h_coeff[..., i * n:(i + 1) * n] for i in range(self.ext // n)]
 
     def stage_quotient(self, advice_l, fixed_l, instance_l, theta, beta, gamma,
                        y, z_list, phi_list, m_all, shz_list, *ch):
+        """Each term is folded into a running sum as it is built, acc =
+        acc * y + t_i in `term_descs` order, so one term lives at a time;
+        the sum is the reference's sum_i y^(T-1-i) * t_i, the same
+        canonical words."""
         exts = self.stage_to_ext(advice_l, fixed_l, instance_l,
                                  z_list, phi_list, m_all, shz_list)
-        terms = [self.build_term(d, *exts, theta, beta, gamma, list(ch))
-                 for d in self.term_descs]
-        return self.stage_combine(terms, y)
+        acc = None
+        for d in self.term_descs:
+            t = self.build_term(d, *exts, theta, beta, gamma, list(ch))
+            acc = t if acc is None else limbs.add(
+                FR, limbs.mont_mul(FR, acc, y[:, None]), t)
+            del t
+        del exts
+        return self.stage_combine(acc)
 
     # ---- stage D: batched evaluation at an opening point -----------------
     def stage_eval(self, coeff_stack, z_mont):
@@ -444,6 +479,89 @@ def _kernels(pk: ProvingKey) -> ProverKernels:
 # the prover
 # ---------------------------------------------------------------------------
 
+class _ProveCheckpoint:
+    """Restartable prover phases for long (k >= 20) runs (the JAX package's
+    `_ProveCheckpoint`, `prover.py:597-660`): the two expensive cut points,
+    after every column commitment (phase 4b, "cols") and after the quotient
+    commitment (phase 5b, "h"), are saved, so a crashed run resumes with at
+    most one phase of rework. Enabled by `create_proof(...,
+    checkpoint_dir=...)` or EZKL_TPU_CKPT_DIR.
+
+    A checkpoint holds the blinded columns (npz), the transcript state and
+    the squeezed challenges (JSON), under a directory keyed by (vk repr,
+    witness, instance, seed), so a resume continues byte-identical to the
+    uninterrupted proof and another witness or seed never picks up stale
+    state. Cleared on success. The key, the npz arrays ((C, 16, n) and
+    (16, n) uint32 16-bit limbs) and the JSON are the JAX package's, so a
+    checkpoint of either package resumes in the other."""
+
+    def __init__(self, root, pk, asg, seed):
+        import hashlib
+        from ..convert import stack_to_ref
+        h = hashlib.blake2b(digest_size=16)
+        h.update(pk.vk.transcript_repr())
+        h.update(stack_to_ref(asg.advice).tobytes())
+        h.update(repr(asg.instance).encode())
+        h.update(str(seed).encode())
+        self.dir = pathlib.Path(root) / f"prove-{h.hexdigest()}"
+        self.dir.mkdir(parents=True, exist_ok=True)
+
+    def save(self, name: str, tr, meta: dict, arrays: dict):
+        """arrays: name -> (C, 8, n) or (8, n) tensor, or a list of them."""
+        from ..convert import limbs_to_ref, stack_to_ref
+
+        def to_ref(t):
+            return stack_to_ref(t) if t.dim() == 3 else limbs_to_ref(t)
+        flat = {}
+        for kk, v in arrays.items():
+            if isinstance(v, (list, tuple)):
+                flat[f"{kk}__len"] = np.asarray(len(v))
+                for i, a in enumerate(v):
+                    flat[f"{kk}__{i}"] = to_ref(a)
+            else:
+                flat[kk] = to_ref(v)
+        # np.savez appends ".npz" to a name without it: keep the temporary
+        # name suffixed so that the write lands where the rename expects
+        tmp = self.dir / f".{name}.tmp.npz"
+        np.savez(tmp, **flat)
+        tmp.rename(self.dir / f"{name}.npz")
+        meta = dict(meta, transcript_state=tr._state.hex())
+        (self.dir / f"{name}.json").write_text(json.dumps(meta))
+
+    def load(self, name: str, device):
+        from ..convert import limbs_from_ref, stack_from_ref
+
+        def from_ref(a):
+            return stack_from_ref(a, device) if a.ndim == 3 else limbs_from_ref(a, device)
+        jf, nf = self.dir / f"{name}.json", self.dir / f"{name}.npz"
+        if not (jf.exists() and nf.exists()):
+            return None
+        meta = json.loads(jf.read_text())
+        arrays = {}
+        with np.load(nf) as data:
+            for kk in data.files:
+                if kk.endswith("__len"):
+                    base = kk[:-5]
+                    arrays[base] = [from_ref(data[f"{base}__{i}"])
+                                    for i in range(int(data[kk]))]
+                elif "__" not in kk:
+                    arrays[kk] = from_ref(data[kk])
+        return meta, arrays
+
+    def clear(self):
+        import shutil
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _pts_meta(pts):
+    """Host affine points -> JSON-able [[hex, hex] | None]."""
+    return [None if p is None else [hex(p[0]), hex(p[1])] for p in pts]
+
+
+def _pts_unmeta(pts):
+    return [None if p is None else (int(p[0], 16), int(p[1], 16)) for p in pts]
+
+
 def _rng_for_proof(seed: int | None) -> np.random.Generator:
     if seed is None:
         env = _os.environ.get("EZKL_TPU_DET_SEED")
@@ -467,7 +585,8 @@ def _random_mont(rng: np.random.Generator, shape, device) -> torch.Tensor:
 
 def create_proof(pk: ProvingKey, srs: SRS, asg: Assignment,
                  transcript: Transcript | None = None,
-                 seed: int | None = None) -> Proof:
+                 seed: int | None = None,
+                 checkpoint_dir: str | None = None) -> Proof:
     cs = pk.vk.cs
     dom = pk.vk.domain
     n = dom.n
@@ -478,7 +597,16 @@ def create_proof(pk: ProvingKey, srs: SRS, asg: Assignment,
     m_perm = len(cs.perm_columns)
     a = kern.a
     rng = _rng_for_proof(seed)
+    _span("done", dev)                 # a phase left open by a prove that raised
     PHASE_SECONDS.clear()
+    PHASE_PEAK_BYTES.clear()
+
+    ckpt_root = checkpoint_dir or _os.environ.get("EZKL_TPU_CKPT_DIR")
+    if ckpt_root and seed is None and _os.environ.get("EZKL_TPU_DET_SEED") is None:
+        raise ValueError(
+            "checkpointed proving needs a deterministic seed (seed= or "
+            "EZKL_TPU_DET_SEED): a resume must replay the same blinding")
+    ckpt = _ProveCheckpoint(ckpt_root, pk, asg, seed) if ckpt_root else None
 
     def blind_tail(cols, unblinded_mask=None):
         """Randomize rows (a, n) of a (..., 8, n) Montgomery column stack.
@@ -498,102 +626,152 @@ def create_proof(pk: ProvingKey, srs: SRS, asg: Assignment,
 
     fixed_l = pk.fixed_lagrange
     instance_l = asg.instance_device(dev)
-    _span("phase1: bind vk+instances", dev)
-    tr.common_bytes(pk.vk.transcript_repr())
-    for col in asg.instance:
-        for v in col:
-            tr.common_scalar(v)
+    cols_st = ckpt.load("cols", dev) if ckpt else None
+    if cols_st is None:
+        # (the JAX package drops compiled executables here and around phase
+        # 5, `_maybe_release_executables`, to free TPU memory: PyTorch keeps
+        # no compiled programs, so nothing is ported for it)
+        _span("phase1: bind vk+instances", dev)
+        tr.common_bytes(pk.vk.transcript_repr())
+        for col in asg.instance:
+            for v in col:
+                tr.common_scalar(v)
 
-    _span("phase2: advice commitments", dev)
-    phases = asg.cs.advice_phase
-    p0_cols = [i for i in range(cs.num_advice) if phases[i] == 0]
-    p1_cols = [i for i in range(cs.num_advice) if phases[i] != 0]
+        _span("phase2: advice commitments", dev)
+        phases = asg.cs.advice_phase
+        p0_cols = [i for i in range(cs.num_advice) if phases[i] == 0]
+        p1_cols = [i for i in range(cs.num_advice) if phases[i] != 0]
 
-    unbl = np.asarray([bool(b) for b in cs.advice_unblinded], bool) \
-        if cs.advice_unblinded else np.zeros(cs.num_advice, bool)
-    advice_l = blind_tail(asg.device_columns(ADVICE, dev), unbl)  # (na, 8, n)
-    advice_comms: dict[int, object] = {}
-    if p0_cols:
-        for i, c in zip(p0_cols, kzg.commit_many(srs, advice_l[p0_cols])):
-            advice_comms[i] = c
-            tr.common_point(c)
-    challenges = [tr.challenge() for _ in range(cs.num_challenges)]
-    ch_dev = [limbs.const(FR, v, device=dev) for v in challenges]
-    if p1_cols:
-        asg.apply_phase1({i: v for i, v in enumerate(challenges)})
-        refreshed = blind_tail(asg.device_columns(ADVICE, dev), unbl)
-        # keep the already-committed phase-0 blinding rows byte-identical
-        keep = torch.tensor([phases[i] == 0 for i in range(cs.num_advice)], device=dev)
-        advice_l = torch.where(keep[:, None, None], advice_l, refreshed)
-        for i, c in zip(p1_cols, kzg.commit_many(srs, advice_l[p1_cols])):
-            advice_comms[i] = c
-            tr.common_point(c)
-    advice_comms = [advice_comms[i] for i in range(cs.num_advice)]
+        unbl = np.asarray([bool(b) for b in cs.advice_unblinded], bool) \
+            if cs.advice_unblinded else np.zeros(cs.num_advice, bool)
+        advice_l = blind_tail(asg.device_columns(ADVICE, dev), unbl)  # (na, 8, n)
+        advice_comms: dict[int, object] = {}
+        if p0_cols:
+            for i, c in zip(p0_cols, kzg.commit_many(srs, advice_l[p0_cols])):
+                advice_comms[i] = c
+                tr.common_point(c)
+        challenges = [tr.challenge() for _ in range(cs.num_challenges)]
+        ch_dev = [limbs.const(FR, v, device=dev) for v in challenges]
+        if p1_cols:
+            asg.apply_phase1({i: v for i, v in enumerate(challenges)})
+            refreshed = blind_tail(asg.device_columns(ADVICE, dev), unbl)
+            # keep the already-committed phase-0 blinding rows byte-identical
+            keep = torch.tensor([phases[i] == 0 for i in range(cs.num_advice)], device=dev)
+            advice_l = torch.where(keep[:, None, None], advice_l, refreshed)
+            for i, c in zip(p1_cols, kzg.commit_many(srs, advice_l[p1_cols])):
+                advice_comms[i] = c
+                tr.common_point(c)
+        advice_comms = [advice_comms[i] for i in range(cs.num_advice)]
 
-    _span("phase3: lookups m", dev)
-    theta = tr.challenge()
-    theta_dev = limbs.const(FR, theta, device=dev)
-    fs_all, t_all, sh_in_all, sh_t_all = kern.stage_compress(
-        advice_l, fixed_l, instance_l, theta_dev, *ch_dev)
-    m_all = []
-    for lk, fs, t in zip(cs.lookups, fs_all, t_all):
-        # multiplicity counting: pack field elements into structured u64
-        # rows, sorted-match inputs against the table, count per
-        # first-occurrence table row
-        t_pack = limbs.pack_rows(limbs.from_mont(FR, t))[:a]
-        order = np.argsort(t_pack, kind="stable")
-        t_sorted = t_pack[order]
-        f_all = np.concatenate([limbs.pack_rows(limbs.from_mont(FR, f))[:a] for f in fs])
-        pos = np.searchsorted(t_sorted, f_all)
-        pos_c = np.minimum(pos, t_sorted.size - 1)
-        ok = t_sorted[pos_c] == f_all
-        if not ok.all():
-            raise ValueError(
-                f"lookup '{lk.name}': {int((~ok).sum())} input values not in table")
-        run_start = np.r_[True, t_sorted[1:] != t_sorted[:-1]]
-        run_first = np.maximum.accumulate(
-            np.where(run_start, np.arange(t_sorted.size), 0))
-        rows_for_f = order[run_first[pos_c]]
-        m_host = np.bincount(rows_for_f, minlength=n).astype(np.int64)
-        m_dev = limbs.to_mont(FR, limbs.to_device(limbs.encode_i64(FR, m_host), dev))
-        m_all.append(blind_tail(m_dev))
-    m_comms = kzg.commit_many(srs, m_all)
-    for cpt in m_comms:
-        tr.common_point(cpt)
+        _span("phase3: lookups m", dev)
+        theta = tr.challenge()
+        theta_dev = limbs.const(FR, theta, device=dev)
+        fs_all, t_all, sh_in_all, sh_t_all = kern.stage_compress(
+            advice_l, fixed_l, instance_l, theta_dev, *ch_dev)
+        m_all = []
+        for lk, fs, t in zip(cs.lookups, fs_all, t_all):
+            # multiplicity counting: pack field elements into structured u64
+            # rows, sorted-match inputs against the table, count per
+            # first-occurrence table row
+            t_pack = limbs.pack_rows(limbs.from_mont(FR, t))[:a]
+            order = np.argsort(t_pack, kind="stable")
+            t_sorted = t_pack[order]
+            f_all = np.concatenate([limbs.pack_rows(limbs.from_mont(FR, f))[:a] for f in fs])
+            pos = np.searchsorted(t_sorted, f_all)
+            pos_c = np.minimum(pos, t_sorted.size - 1)
+            ok = t_sorted[pos_c] == f_all
+            if not ok.all():
+                raise ValueError(
+                    f"lookup '{lk.name}': {int((~ok).sum())} input values not in table")
+            run_start = np.r_[True, t_sorted[1:] != t_sorted[:-1]]
+            run_first = np.maximum.accumulate(
+                np.where(run_start, np.arange(t_sorted.size), 0))
+            rows_for_f = order[run_first[pos_c]]
+            m_host = np.bincount(rows_for_f, minlength=n).astype(np.int64)
+            m_dev = limbs.to_mont(FR, limbs.to_device(limbs.encode_i64(FR, m_host), dev))
+            m_all.append(blind_tail(m_dev))
+        m_comms = kzg.commit_many(srs, m_all)
+        for cpt in m_comms:
+            tr.common_point(cpt)
 
-    _span("phase4: perm z + phi", dev)
-    beta = tr.challenge()
-    gamma = tr.challenge()
-    beta_dev = limbs.const(FR, beta, device=dev)
-    gamma_dev = limbs.const(FR, gamma, device=dev)
-    z_list, phi_list, shz_list = kern.stage_zphi(
-        advice_l, fixed_l, instance_l, beta_dev, gamma_dev, fs_all, t_all,
-        m_all, sh_in_all, sh_t_all)
-    z_list = [blind_tail(z) for z in z_list]
-    phi_list = [blind_tail(phi) for phi in phi_list]
-    shz_list = [blind_tail(z) for z in shz_list]
-    # one batched MSM for z + phi + shuffle-z + the vanishing random poly
-    _span("phase4b: random poly", dev)
-    r_evals = _random_mont(rng, (n,), dev)
-    batch_comms = kzg.commit_many(srs, z_list + phi_list + shz_list + [r_evals])
-    for cpt in batch_comms:
-        tr.common_point(cpt)
-    nz, nphi, nshz = len(z_list), len(phi_list), len(shz_list)
-    z_comms = batch_comms[:nz]
-    phi_comms = batch_comms[nz:nz + nphi]
-    shz_comms = batch_comms[nz + nphi:nz + nphi + nshz]
-    r_comm = batch_comms[-1]
+        _span("phase4: perm z + phi", dev)
+        beta = tr.challenge()
+        gamma = tr.challenge()
+        beta_dev = limbs.const(FR, beta, device=dev)
+        gamma_dev = limbs.const(FR, gamma, device=dev)
+        z_list, phi_list, shz_list = kern.stage_zphi(
+            advice_l, fixed_l, instance_l, beta_dev, gamma_dev, fs_all, t_all,
+            m_all, sh_in_all, sh_t_all)
+        z_list = [blind_tail(z) for z in z_list]
+        phi_list = [blind_tail(phi) for phi in phi_list]
+        shz_list = [blind_tail(z) for z in shz_list]
+        # one batched MSM for z + phi + shuffle-z + the vanishing random poly
+        _span("phase4b: random poly", dev)
+        r_evals = _random_mont(rng, (n,), dev)
+        batch_comms = kzg.commit_many(srs, z_list + phi_list + shz_list + [r_evals])
+        for cpt in batch_comms:
+            tr.common_point(cpt)
+        nz, nphi, nshz = len(z_list), len(phi_list), len(shz_list)
+        z_comms = batch_comms[:nz]
+        phi_comms = batch_comms[nz:nz + nphi]
+        shz_comms = batch_comms[nz + nphi:nz + nphi + nshz]
+        r_comm = batch_comms[-1]
+        if ckpt:
+            ckpt.save(
+                "cols", tr,
+                meta=dict(theta=theta, beta=beta, gamma=gamma,
+                          challenges=challenges,
+                          advice_comms=_pts_meta(advice_comms),
+                          m_comms=_pts_meta(m_comms),
+                          z_comms=_pts_meta(z_comms),
+                          phi_comms=_pts_meta(phi_comms),
+                          shz_comms=_pts_meta(shz_comms),
+                          r_comm=_pts_meta([r_comm])[0]),
+                arrays=dict(advice_l=advice_l, m_all=m_all, z_list=z_list,
+                            phi_list=phi_list, shz_list=shz_list,
+                            r_evals=r_evals))
+    else:
+        _span("phase1-4b: resumed from checkpoint", dev)
+        meta, arrs = cols_st
+        tr._state = bytes.fromhex(meta["transcript_state"])
+        theta, beta, gamma = meta["theta"], meta["beta"], meta["gamma"]
+        challenges = meta["challenges"]
+        theta_dev = limbs.const(FR, theta, device=dev)
+        beta_dev = limbs.const(FR, beta, device=dev)
+        gamma_dev = limbs.const(FR, gamma, device=dev)
+        ch_dev = [limbs.const(FR, v, device=dev) for v in challenges]
+        advice_comms = _pts_unmeta(meta["advice_comms"])
+        m_comms = _pts_unmeta(meta["m_comms"])
+        z_comms = _pts_unmeta(meta["z_comms"])
+        phi_comms = _pts_unmeta(meta["phi_comms"])
+        shz_comms = _pts_unmeta(meta["shz_comms"])
+        r_comm = _pts_unmeta([meta["r_comm"]])[0]
+        advice_l = arrs["advice_l"]
+        m_all = arrs["m_all"]
+        z_list, phi_list = arrs["z_list"], arrs["phi_list"]
+        shz_list, r_evals = arrs["shz_list"], arrs["r_evals"]
 
-    _span("phase5: quotient", dev)
-    y = tr.challenge()
-    y_dev = limbs.const(FR, y, device=dev)
-    h_pieces = kern.stage_quotient(advice_l, fixed_l, instance_l, theta_dev,
-                                   beta_dev, gamma_dev, y_dev, z_list,
-                                   phi_list, m_all, shz_list, *ch_dev)
-    _span("phase5b: commit h", dev)
-    h_comms = kzg.commit_many(srs, h_pieces, lagrange=False)
-    for cpt in h_comms:
-        tr.common_point(cpt)
+    h_st = ckpt.load("h", dev) if ckpt else None
+    if h_st is None:
+        _span("phase5: quotient", dev)
+        y = tr.challenge()
+        y_dev = limbs.const(FR, y, device=dev)
+        h_pieces = kern.stage_quotient(advice_l, fixed_l, instance_l, theta_dev,
+                                       beta_dev, gamma_dev, y_dev, z_list,
+                                       phi_list, m_all, shz_list, *ch_dev)
+        _span("phase5b: commit h", dev)
+        h_comms = kzg.commit_many(srs, h_pieces, lagrange=False)
+        for cpt in h_comms:
+            tr.common_point(cpt)
+        if ckpt:
+            ckpt.save("h", tr, meta=dict(h_comms=_pts_meta(h_comms)),
+                      arrays=dict(h_pieces=h_pieces))
+    else:
+        _span("phase5: resumed from checkpoint", dev)
+        meta_h, arrs_h = h_st
+        tr._state = bytes.fromhex(meta_h["transcript_state"])
+        h_comms = _pts_unmeta(meta_h["h_comms"])
+        h_pieces = arrs_h["h_pieces"]
 
     _span("phase6: evaluations", dev)
     x = tr.challenge()
@@ -707,6 +885,8 @@ def create_proof(pk: ProvingKey, srs: SRS, asg: Assignment,
         tr.common_point(cpt)
 
     _span("done", dev)
+    if ckpt:
+        ckpt.clear()
     return Proof(
         advice_commitments=advice_comms,
         lookup_m_commitments=m_comms,

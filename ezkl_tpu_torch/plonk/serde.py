@@ -19,7 +19,6 @@ arbitrary-code-execution hazard on `verify`).
 
 from __future__ import annotations
 
-import io
 import json
 import pathlib
 
@@ -172,16 +171,18 @@ def load_vk(path) -> VerifyingKey:
 
 
 def save_pk(pk: ProvingKey, path):
+    """The JAX package's npz members, stored uncompressed: at k = 20 they
+    are 2.8 GB of 16-bit limbs, slow to deflate (np.load reads either
+    form, so the file still loads in both packages)."""
     from ..convert import stack_to_ref
-    buf = io.BytesIO()
-    np.savez_compressed(
-        buf,
-        vk_json=np.frombuffer(vk_to_json(pk.vk).encode(), dtype=np.uint8),
-        fixed_lagrange=stack_to_ref(pk.fixed_lagrange),
-        sigma_lagrange=stack_to_ref(pk.sigma_lagrange),
-        perm_maps=np.asarray(pk.perm_maps, dtype=np.int32),
-    )
-    pathlib.Path(path).write_bytes(buf.getvalue())
+    with open(path, "wb") as f:
+        np.savez(
+            f,
+            vk_json=np.frombuffer(vk_to_json(pk.vk).encode(), dtype=np.uint8),
+            fixed_lagrange=stack_to_ref(pk.fixed_lagrange),
+            sigma_lagrange=stack_to_ref(pk.sigma_lagrange),
+            perm_maps=np.asarray(pk.perm_maps, dtype=np.int32),
+        )
 
 
 def load_pk(path, device=None) -> ProvingKey:

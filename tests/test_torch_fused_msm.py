@@ -72,6 +72,57 @@ def test_plain_bit_exact_vs_jax_interpret(name):
                                       np.asarray(want[c], np.uint32), err_msg=f"{name}.{c}")
 
 
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("group", [1, 2, None])
+def test_window_groups_give_the_frozen_words(affine, group):
+    """The fixture MSM (C = 2 columns of W = 64 windows, c = 4) in groups of
+    1 and 2 windows (64 and 32 groups a column) and at the default (one
+    group of all 128 windows): the JAX package's words each time, which
+    ran in groups of 32 windows."""
+    name = f"msm_fused_{'affine' if affine else 'projective'}"
+    case = CASES[name]
+    want = json.loads((FIXTURES / f"fused_{name}.json").read_text())
+    coords = [_enc(v) for v in case["p"]]
+    scalars = _enc(case["scalars"], FR, mont=False).movedim(1, 0)
+    got = msm.msm_multi(PointP(*coords), scalars, c=case["c"], affine=affine, group=group)
+    for c in "xyz":
+        np.testing.assert_array_equal(limbs.host_words(getattr(got, c)),
+                                      np.asarray(want[c], np.uint32), err_msg=f"{group}.{c}")
+
+
+@pytest.mark.parametrize("group, C", [(5, 2), (100, 4)])
+def test_window_groups_that_pad_or_span_columns_match_host(group, C):
+    """Groups of 5 windows pad each column's 26 windows (c = 10) with zero
+    windows to 30; a group of 100 windows holds 3 whole columns (78
+    windows), so the last group holds one column. The sums are the
+    host's."""
+    n = 64
+    pts = _points(n)
+    cols = [_scalars(n) for _ in range(C)]
+    S = limbs.to_device(limbs.encode(FR, cols, mont=False), "cpu").movedim(1, 0)
+    out = msm.msm_multi(curve.encode_points(pts, "cpu"), S, c=10, affine=True, group=group)
+    assert curve.decode_points(out) == [hostcurve.g1_msm(pts, sc) for sc in cols]
+
+
+@pytest.mark.parametrize("C, n, want", [
+    (8, 1 << 14, 208),            # the k = 14 stand-in's widest commitment: one group
+    (16, 1 << 14, 416),           # 16 columns of 26 windows at 2^14: 6.8M point-windows
+    (32, 1 << 13, 832),           # mlp_4d's widest commitment at k = 13: one group
+    (32, 1 << 17, 60),            # three whole columns of 20 windows (c = 13) a group
+    (32, 1 << 20, 8),             # k = 20 keygen (31 fixed columns padded to 32): 64 groups
+    (1, 1 << 20, 8),
+    (1, 1 << 24, 1),
+])
+def test_window_group_budget(C, n, want):
+    """Every commitment of the k = 14 stand-in and of mlp_4d's prove keeps
+    one group of all C * W windows, as before groups; at 2^20 points a group
+    is 8 of a column's 16 windows (c = 16), 2^23 point-windows."""
+    W = len(msm._signed_windows(msm.default_window_bits(n)))
+    G = msm.window_group(C, W, n)
+    assert G == want
+    assert G * n <= msm.GROUP_POINTS or G == 1
+
+
 def _points(n):
     return [hostcurve.g1_mul(hostcurve.G1, int(k)) for k in RNG.integers(1, 1 << 30, size=n)]
 

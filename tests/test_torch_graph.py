@@ -223,3 +223,68 @@ def test_chunk_ctx_evaluates_as_the_whole_domain():
                                       start=s, size=size, n=n))
               for s in range(0, n, size)]
     assert torch.cat(chunks, dim=1).equal(whole)
+
+
+def test_conv2d_mnist_is_the_graded_model(tmp_path):
+    """`chip_smoke.conv2d_mnist` (the model the card proves at k = 20)
+    writes the bytes and input of `examples/gen_graded.py`'s conv2d_mnist,
+    and its float64 forward (`conv2d_mnist_float`) is the JAX package's
+    float forward of that file."""
+    import chip_smoke
+    sys.path.insert(0, str(ROOT / "examples"))
+    import gen_graded
+    gen_graded.gen_conv2d_mnist(tmp_path)
+    onnx, inp = chip_smoke.conv2d_mnist(onnx_writer)
+    assert onnx == (tmp_path / "conv2d_mnist.onnx").read_bytes()
+    assert json.dumps(inp) == (tmp_path / "conv2d_mnist_input.json").read_text()
+    assert chip_smoke.conv2d_mnist(ref_writer)[0] == onnx
+
+
+@pytest.fixture(scope="module")
+def conv2d(tmp_path_factory):
+    """conv2d_mnist's files in both packages: settings.json at the default
+    run arguments (kept as settings_default.json), then with logrows = 20
+    (`chip_smoke.with_logrows`), model.compiled and witness.json."""
+    import chip_smoke
+    from ezkl_tpu.graph.circuit import GraphSettings as RefSettings
+    from ezkl_tpu_torch.graph.circuit import GraphSettings
+
+    base = tmp_path_factory.mktemp("conv2d_mnist")
+    out = []
+    for package_api, writer, settings_cls, name in (
+            (ref_api, ref_writer, RefSettings, "ref"), (api, onnx_writer, GraphSettings, "port")):
+        d = base / name
+        d.mkdir()
+        onnx, inp = chip_smoke.conv2d_mnist(writer)
+        (d / "network.onnx").write_bytes(onnx)
+        (d / "input.json").write_text(json.dumps(inp))
+        package_api.gen_settings(d / "network.onnx", d / "settings.json")
+        (d / "settings_default.json").write_bytes((d / "settings.json").read_bytes())
+        chip_smoke.with_logrows(d / "settings.json", 20, settings_cls)
+        package_api.compile_circuit(d / "network.onnx", d / "settings.json",
+                                    d / "model.compiled")
+        kw = {"device": "cpu"} if name == "port" else {}
+        package_api.gen_witness(d / "model.compiled", d / "input.json", d / "witness.json",
+                                **kw)
+        out.append(d)
+    return out
+
+
+@pytest.mark.parametrize("artifact", ["settings_default.json", "settings.json",
+                                      "model.compiled", "witness.json"])
+def test_conv2d_mnist_files_byte_equal_the_reference(conv2d, artifact):
+    """At the default run arguments the settings settle on k = 15; at
+    logrows = 20 the compiled circuit and the witness (outputs within 0.5
+    of the float64 forward, the same argmax) are the JAX package's bytes."""
+    import chip_smoke
+    ref, port = conv2d
+    assert (port / artifact).read_bytes() == (ref / artifact).read_bytes()
+    if artifact == "settings_default.json":
+        assert json.loads((port / artifact).read_text())["run_args"]["logrows"] == 15
+    if artifact == "settings.json":
+        assert json.loads((port / artifact).read_text())["run_args"]["logrows"] == 20
+    if artifact == "witness.json":
+        got = np.asarray(json.loads((port / artifact).read_text())
+                         ["pretty_elements"]["rescaled_outputs"], np.float64).reshape(-1)
+        want = chip_smoke.conv2d_mnist_float()
+        assert np.max(np.abs(got - want)) <= 0.5 and np.argmax(got) == np.argmax(want)

@@ -2,7 +2,7 @@
 
 * neither the package nor its card scripts (`chip_smoke.py`,
   `tools/profile_torch_prove.py`, `tools/bench_msm_kernels.py`,
-  `tools/pair_k1_k9.py`) import
+  `tools/pair_k1_k9.py`, `tools/run_chip_phases.py`) import
   `jax` or the JAX package `ezkl_tpu` (checked on the source with `ast`,
   and for the API and the CLI also in a fresh interpreter);
 * every kernel wrapper (K1 mont_mul in each broadcast form and its chain
@@ -45,7 +45,8 @@ torch.set_num_threads(1)     # small tensors; pytest-xdist runs one worker per c
 def _sources():
     files = sorted((ROOT / "ezkl_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_prove.py",
-        ROOT / "tools" / "bench_msm_kernels.py", ROOT / "tools" / "pair_k1_k9.py"]
+        ROOT / "tools" / "bench_msm_kernels.py", ROOT / "tools" / "pair_k1_k9.py",
+        ROOT / "tools" / "run_chip_phases.py"]
     assert len(files) > 10
     return files
 
@@ -210,6 +211,9 @@ def card(monkeypatch):
     monkeypatch.setattr(build, "_LIB", lib)
     monkeypatch.setattr(build, "stream_of", lambda t: 0)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    # tables built here hold the recording library's outputs: keep them
+    # out of the module's cache
+    monkeypatch.setattr(ntt, "_DEV_MEMO", {})
     build.reset_launches()
     yield lib
     build.reset_launches()
@@ -276,8 +280,15 @@ def test_width_histogram_counts_launches_per_field_and_power_of_two():
 def test_ntt_on_the_card_is_one_launch_per_pass(card, k):
     """A transform of 2^k points over a batch is one `ez_ntt_stages` launch
     per pass of `pass_split(k)` (k = 14: 2, where one launch per stage took
-    14), each with the pass's (s0, r), groups per block and 2^k columns."""
+    14), each with the pass's (s0, r), groups per block and 2^k columns. (The
+    first transform of a size also builds its twiddle table, k - 1 K1
+    launches, `limbs.powers`; it is built first here.)"""
     x = limbs.zeros((2, 1 << k), "cpu")
+    ntt.twiddles(FR, k, False, x.device)
+    assert card.calls == ["ez_mont_mul"] * (k - 1)
+    card.calls.clear()
+    card.args.clear()
+    build.reset_launches()
     ntt.ntt(FR, x)
     split = pntt.pass_split(k)
     assert card.calls == ["ez_ntt_stages"] * len(split)

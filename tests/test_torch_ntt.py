@@ -216,3 +216,28 @@ def test_transform_through_the_pass_split_bit_exact(which, k, batch):
                "coset_ntt": ref_ntt.coset_ntt_jit}[which]
         want = jit(ref_fr(), jnp.asarray(x_ref))
         np.testing.assert_array_equal(convert.limbs_to_ref(got), np.asarray(want))
+
+
+def test_domain_transforms_and_horner_equal_the_reference():
+    """`Domain.lagrange_to_coeff`, `coeff_to_lagrange` and `eval_coeff_at`
+    of the port against the JAX package's `Domain` at k = 3 (its transforms
+    compiled once each) on seeded values: the same words and the same
+    integer."""
+    from ezkl_tpu.plonk import domain as ref_domain
+    from ezkl_tpu_torch.plonk import domain
+
+    vals = _values(8, 23)
+    ref_d, d = ref_domain.domain(3), domain.domain(3)
+    a_ref = jnp.asarray(ref_limbs.encode(ref_fr(), vals))
+    a = limbs.to_device(limbs.encode(FR, vals), "cpu")
+    coeff_ref = ref_d.lagrange_to_coeff(a_ref)
+    coeff = d.lagrange_to_coeff(a)
+    np.testing.assert_array_equal(limbs.host_words(coeff), convert.words_from_ref(coeff_ref))
+    np.testing.assert_array_equal(limbs.host_words(d.coeff_to_lagrange(coeff)),
+                                  convert.words_from_ref(ref_d.coeff_to_lagrange(coeff_ref)))
+    np.testing.assert_array_equal(limbs.host_words(d.coeff_to_lagrange(coeff)),
+                                  limbs.host_words(a))
+    for x in (0, 1, 12345, P - 1):
+        assert d.eval_coeff_at(coeff, x) == ref_d.eval_coeff_at(coeff_ref, x)
+    assert d.eval_coeff_at(coeff, 7) == sum(v * pow(7, j, P) for j, v in enumerate(
+        limbs.decode(FR, coeff))) % P

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Profile one `create_proof` of the PyTorch/CUDA port on the card.
 
-    python3 tools/profile_torch_prove.py [--k 14] [--graph]
+    python3 tools/profile_torch_prove.py [--k 14] [--graph [mlp_4d|conv2d_mnist]]
 
 Builds the kernels, keys the circuit of `chip_smoke.py` (k = 14 unless
 told; with `--graph` instead the graded mlp_4d model of its graph phase,
 keyed through the file API in a temporary directory at the k its settings
-settle on), proves once to warm up, once more timed, and once under
+settle on; with `--graph conv2d_mnist` the graded conv2d_mnist of its
+conv2d_mnist phase at k = 20), proves once to warm up, once more timed, and
+once under
 `torch.profiler`, then runs `gen_srs` once more under it. Prints the card's
 name and power limit as nvidia-smi gives them, a `profile_gen_srs` line
 (its profiled wall and device busy seconds, launches, `top` and `widths` as
 below: K9's 2^k-lane doublings among them), then one JSON line:
 
   wall_s          host time of the timed create_proof (ends synchronized)
+  peak_bytes      the card's peak allocated bytes in the timed create_proof,
+                  and per phase (`prover.PHASE_PEAK_BYTES`)
   profiled_wall_s the same for the profiled run (the profiler's own cost in)
   device_busy_s   sum of the durations of the device's kernels, copies and
                   sets in the profiled run (one stream: they do not overlap)
@@ -153,21 +157,27 @@ def _top(ops, match=None):
     return [{"name": name[:120], "count": c, "total_ms": ns / 1e6} for name, (c, ns) in keep]
 
 
-def _graph_key(dev, wd):
-    """mlp_4d keyed through the port's file API in `wd`: (pk, srs, its
-    finalized assignment, k), the key and SRS loaded from their files."""
+def _graph_key(dev, wd, model):
+    """`model` (mlp_4d, or conv2d_mnist at k = 20) keyed through the port's
+    file API in `wd`: (pk, srs, its finalized assignment, k), the key and
+    SRS loaded from their files."""
     from ezkl_tpu_torch import api
     from ezkl_tpu_torch.graph import onnx_writer
+    from ezkl_tpu_torch.graph.circuit import GraphSettings
     from ezkl_tpu_torch.graph.run_args import RunArgs
     from ezkl_tpu_torch.plonk import serde, srs as srsmod
 
-    onnx, inp = chip_smoke.mlp_4d(onnx_writer)
+    onnx, inp = getattr(chip_smoke, model)(onnx_writer)
     f = {name: str(wd / name) for name in ("network.onnx", "input.json", "settings.json",
                                            "model.compiled", "kzg.srs", "vk.key", "pk.key")}
     pathlib.Path(f["network.onnx"]).write_bytes(onnx)
     pathlib.Path(f["input.json"]).write_text(json.dumps(inp))
-    st = api.gen_settings(f["network.onnx"], f["settings.json"],
-                          RunArgs(logrows=chip_smoke.GRAPH_LOGROWS))
+    if model == chip_smoke.CONV_MODEL:
+        api.gen_settings(f["network.onnx"], f["settings.json"])
+        st = chip_smoke.with_logrows(f["settings.json"], chip_smoke.K20, GraphSettings)
+    else:
+        st = api.gen_settings(f["network.onnx"], f["settings.json"],
+                              RunArgs(logrows=chip_smoke.GRAPH_LOGROWS))
     k = st.run_args.logrows
     api.compile_circuit(f["network.onnx"], f["settings.json"], f["model.compiled"])
     api.gen_srs(f["kzg.srs"], k, device=dev)
@@ -185,8 +195,9 @@ def main() -> int:
     ap.add_argument("--k", type=int, default=chip_smoke.K)
     ap.add_argument("--match", help="also list in `top` every device operation past "
                     "the first 15 whose name matches this regular expression")
-    ap.add_argument("--graph", action="store_true",
-                    help="profile the mlp_4d model of chip_smoke.py's graph phase")
+    ap.add_argument("--graph", nargs="?", const=chip_smoke.GRAPH_MODEL,
+                    choices=[chip_smoke.GRAPH_MODEL, chip_smoke.CONV_MODEL],
+                    help="profile a graded model of chip_smoke.py (alone: mlp_4d)")
     args = ap.parse_args()
 
     import torch
@@ -202,7 +213,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if args.graph:
         with tempfile.TemporaryDirectory() as wd:
-            pk, srs, asg, args.k = _graph_key(dev, pathlib.Path(wd))
+            pk, srs, asg, args.k = _graph_key(dev, pathlib.Path(wd), args.graph)
     else:
         cs, asg, _ = chip_smoke.build_circuit(np.random.default_rng(chip_smoke.SEED), args.k)
         srs = srsmod.gen_srs(args.k, device=dev)
@@ -218,6 +229,7 @@ def main() -> int:
     build.reset_launches()
     wall = prove()
     launches = dict(build.LAUNCHES)
+    phase_peak = dict(prover.PHASE_PEAK_BYTES)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     build.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
@@ -238,8 +250,9 @@ def main() -> int:
                      "top": _top(srs_ops, args.match),
                      "widths": _widths(srs_ops, list(build.WIDTHS))})
     chip_smoke.emit({"phase": "profile", "k": args.k,
-                     "circuit": chip_smoke.GRAPH_MODEL if args.graph else "stand-in",
-                     "wall_s": wall,
+                     "circuit": args.graph or "stand-in",
+                     "wall_s": wall, "peak_bytes": max(phase_peak.values()),
+                     "phase_peak_bytes": phase_peak,
                      "profiled_wall_s": profiled_wall, "device_busy_s": busy,
                      "busy_share": busy / profiled_wall, "busy_share_of_wall": busy / wall,
                      "phases": phases, "top": _top(ops, args.match), "launches": launches,
