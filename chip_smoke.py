@@ -96,6 +96,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
               this proof and the graph phase's mlp_4d proof (two vks):
               `verify_aggr` must accept it and reject it with an inner eval
               flipped.
+9. evm    -- the EVM verifier, in the conv and graph phases' directories:
+              conv2d_mnist at k = 20, keyed again with
+              `disable_freivalds=True` on the conv phase's SRS (the EVM
+              verifier takes no multi-phase circuit, in either package),
+              api.prove(transcript="evm", seed=1) on the card (also
+              verified by the host verifier with the EVM transcript), then
+              create_evm_verifier, deploy_evm and verify_evm on the in-repo
+              EVM, which must accept it and reject the copy with its first
+              eval + 1 and the conv phase's default-transcript proof; then
+              mlp_4d's EVM-transcript proof on the card through the CLI in
+              subprocesses (create-evm-verifier, deploy-evm, verify-evm
+              exit 0, encode-evm-calldata byte-equal to the API's), the
+              tampered proof and the graph phase's default-transcript proof
+              giving verify-evm exit 1, and calldata one byte
+              short reverting on the port's EVM. Seconds of each step, the
+              EVM prove's peak device bytes, runtime, initcode and calldata
+              bytes; K1-K8 launched in each EVM prove.
+10. mesh   -- `parallel.sharded` on `make_mesh(devices=[cuda:0] * 4)`, four
+              shards standing in for four cards (and on up to four distinct
+              cards where the machine has two or more), each against the
+              single-device path: `msm_sharded` of the first 2^20 points of
+              the conv phase's SRS with seeded scalars (affine-equal to
+              `msm.msm_multi`), `ntt_sharded_batched` of 8 x 2^23 forward and
+              inverse (word-equal to `ntt.ntt` / `ntt.intt`),
+              `to_ext_sharded` of 8 columns of 2^20 (word-equal to
+              `coeff_to_extended(intt(.))`), and the k = 14 stand-in's
+              seed-1 proof with the mesh set (byte-equal to phase 4's, and
+              verified; K1-K8 launched in it). Seconds of each beside the
+              single-device ones.
 7. poseidon -- the device Poseidon `hash_fixed_len` over 2^14 two-element
               inputs on the card, bit-exact against `host_hash` on a sample
               of 64 of them; its products are K1 launches.
@@ -104,9 +133,11 @@ Then a `times` line (seconds of each phase), the `kernels` summary line
 (times, bounds, launches: K1's three forms, K2, K3's two forms and K4-K8
 from the graph phase's warm prove, K9 from its gen_srs; `standin_launches`
 from phase 4's create_proof and gen_srs; `k20`: launches in the warm
-conv2d_mnist prove (K9: gen_srs(20)), device ms and bound at its widths),
+conv2d_mnist prove (K9: gen_srs(20)), device ms and bound at its widths;
+`evm_launches`: in the two EVM proves of phase 9; `mesh_launches`: in the
+stand-in's prove under the four-shard mesh of phase 10),
 the nvidia-smi line, and last `{"ok": true, "device": {...}}`. The phases
-run in the order 3, 4 (with resume), 5, 6, 8, 7.
+run in the order 3, 4 (with resume), 5, 6, 8, 9, 10, 7.
 """
 
 from __future__ import annotations
@@ -1368,6 +1399,298 @@ def conv(dev, wd, mlp):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the EVM verifier -- conv2d_mnist at k = 20 through the API, and
+# mlp_4d through the CLI
+# ---------------------------------------------------------------------------
+
+def _evm_rejects(api, proof_path, addr, chain) -> bool:
+    """`verify_evm` on a proof it must not accept: False on a revert, a
+    RuntimeError when the contract returns another word than 1."""
+    try:
+        return not api.verify_evm(proof_path, addr, chain)
+    except RuntimeError:
+        return True
+
+
+def _bump_first_eval(src, dst):
+    """Copy of a proof.json with its first eval (in sorted label order) + 1."""
+    from ezkl_tpu_torch.fieldmath.spec import FR_MODULUS
+    pj = json.loads(pathlib.Path(src).read_text())
+    label = sorted(pj["evals"])[0]
+    pj["evals"][label] = hex((int(pj["evals"][label], 16) + 1) % FR_MODULUS)
+    pathlib.Path(dst).write_text(json.dumps(pj))
+
+
+def _runtime_bytes(chain_path, addr_path) -> int:
+    state = json.loads(pathlib.Path(chain_path).read_text())
+    return len(bytes.fromhex(state["code"][pathlib.Path(addr_path).read_text().strip()]))
+
+
+def evm(dev, conv_dir, graph_dir):
+    """Phase 9 in the conv and graph phases' directories. (a) conv2d_mnist at
+    k = 20: the EVM verifier takes no multi-phase circuit, in either package
+    ("disable_freivalds=True"), and conv2d_mnist's default run arguments
+    check its Gemm by Freivalds (one challenge), so the phase keys it again
+    with `RunArgs(disable_freivalds=True)` (its settings settle on k = 16),
+    at k = 20 on the conv phase's SRS; then an EVM-transcript proof made on
+    the card, create_evm_verifier, deploy_evm and verify_evm (True); the
+    copy with its first eval + 1 and the conv phase's default-transcript
+    proof rejected. (b) mlp_4d on the graph phase's key (one phase): an
+    EVM-transcript proof on the card, then the CLI's create-evm-verifier,
+    deploy-evm, verify-evm (exit 0) and encode-evm-calldata (bytes equal to
+    the API's); the tampered proof and the graph phase's default-transcript
+    proof of the same circuit give verify-evm exit 1, and calldata one byte
+    short reverts on the port's EVM. Launch counts are reset just before
+    each EVM prove and read just after. Returns the two proves' launches."""
+    import torch
+    from ezkl_tpu_torch import api
+    from ezkl_tpu_torch.evm import vm
+    from ezkl_tpu_torch.graph.circuit import GraphSettings
+    from ezkl_tpu_torch.graph.run_args import RunArgs
+    from ezkl_tpu_torch.kernels import build
+    from ezkl_tpu_torch.plonk import prover
+
+    out, launches = {}, {}
+    for name, src in (("conv2d_mnist", pathlib.Path(conv_dir)),
+                      ("mlp_4d", pathlib.Path(graph_dir))):
+        wd = src / "evm"
+        wd.mkdir()
+        f = {n: str(wd / n) for n in ("proof.json", "proof_bad.json", "Verifier.sol",
+                                       "Verifier.bin", "contract.addr", "evm_chain.json",
+                                       "calldata.bin", "settings.json")}
+        seconds, row = {}, {}
+
+        def step(label, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+            return r
+
+        keys = src
+        if name == "conv2d_mnist":
+            keys = wd
+            st = step("gen_settings", lambda: api.gen_settings(
+                str(src / "network.onnx"), f["settings.json"], RunArgs(disable_freivalds=True)))
+            row["k_default_settings"] = st.run_args.logrows
+            st = with_logrows(f["settings.json"], K20, GraphSettings)
+            row["num_rows"] = st.num_rows
+            step("compile", lambda: api.compile_circuit(str(src / "network.onnx"),
+                                                        f["settings.json"],
+                                                        str(wd / "model.compiled")))
+            step("setup", lambda: api.setup(str(wd / "model.compiled"), str(src / "input.json"),
+                                            str(src / "kzg.srs"), str(wd / "vk.key"),
+                                            str(wd / "pk.key"), device=dev))
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        step("prove", lambda: api.prove(str(keys / "model.compiled"), str(src / "input.json"),
+                                        str(keys / "pk.key"), str(src / "kzg.srs"),
+                                        f["proof.json"], transcript="evm", seed=SEED,
+                                        device=dev))
+        launches[name] = dict(build.LAUNCHES)
+        peak = max([torch.cuda.max_memory_allocated()] + list(prover.PHASE_PEAK_BYTES.values()))
+        host_ok = step("verify_host", lambda: api.verify(
+            f["proof.json"], str(keys / "vk.key"), str(src / "kzg.srs"), transcript="evm",
+            device=dev))
+        _bump_first_eval(f["proof.json"], f["proof_bad.json"])
+        calldata = api.encode_evm_calldata(f["proof.json"], output=None)
+        row.update(seconds=seconds, prove_peak_bytes=peak, launches=launches[name],
+                   host_verified_evm_transcript=host_ok, calldata_bytes=len(calldata))
+        if name == "conv2d_mnist":
+            step("create_evm_verifier", lambda: api.create_evm_verifier(
+                str(keys / "vk.key"), str(src / "kzg.srs"), f["Verifier.sol"], device=dev))
+            step("deploy_evm", lambda: api.deploy_evm(f["Verifier.bin"], f["contract.addr"],
+                                                      f["evm_chain.json"]))
+            ok = step("verify_evm", lambda: api.verify_evm(f["proof.json"], f["contract.addr"],
+                                                           f["evm_chain.json"]))
+            row.update(
+                verified=ok,
+                tamper_rejected=_evm_rejects(api, f["proof_bad.json"], f["contract.addr"],
+                                             f["evm_chain.json"]),
+                default_transcript_rejected=_evm_rejects(
+                    api, str(src / "proof.json"), f["contract.addr"], f["evm_chain.json"]))
+        else:
+            chain = ("--addr-path", f["contract.addr"], "--chain-path", f["evm_chain.json"])
+            cli = {}
+            for label, args in (
+                    ("create-evm-verifier", ("--vk-path", str(src / "vk.key"), "--srs-path",
+                                             str(src / "kzg.srs"), "--sol-code-path",
+                                             f["Verifier.sol"])),
+                    ("deploy-evm", ("--bin-path", f["Verifier.bin"]) + chain),
+                    ("verify-evm", ("--proof-path", f["proof.json"]) + chain),
+                    ("encode-evm-calldata", ("--proof-path", f["proof.json"], "-O",
+                                             f["calldata.bin"]))):
+                t0 = time.perf_counter()
+                cli[label] = _cli(label, *args)
+                seconds[f"cli_{label}"] = time.perf_counter() - t0
+            cli["verify-evm tampered"] = _cli("verify-evm", "--proof-path", f["proof_bad.json"],
+                                              *chain)
+            cli["verify-evm default transcript"] = _cli(
+                "verify-evm", "--proof-path", str(src / "proof.json"), *chain)
+            E = api._load_chain(vm, f["evm_chain.json"])
+            addr = int(pathlib.Path(f["contract.addr"]).read_text().strip(), 16)
+            try:
+                E.call(addr, calldata[:-1])
+                short_reverts = False
+            except vm.EvmRevert:
+                short_reverts = True
+            calldata_file = pathlib.Path(f["calldata.bin"])
+            row.update(
+                cli={k: v[0] for k, v in cli.items()}, cli_last_lines=cli,
+                verified=cli["verify-evm"][0] == 0,
+                tamper_rejected=cli["verify-evm tampered"][0] == 1,
+                default_transcript_rejected=cli["verify-evm default transcript"][0] == 1,
+                cli_calldata_equal=calldata_file.exists()
+                and calldata_file.read_bytes() == calldata,
+                short_calldata_reverts=short_reverts)
+        from ezkl_tpu_torch.plonk import serde
+        row["k"] = serde.load_vk(str(keys / "vk.key")).k
+        row["runtime_bytes"] = _runtime_bytes(f["evm_chain.json"], f["contract.addr"])
+        row["initcode_bytes"] = os.path.getsize(f["Verifier.bin"])
+        row["solidity_bytes"] = os.path.getsize(f["Verifier.sol"])
+        out[name] = row
+    emit({"phase": "evm", **out})
+    for name, row in out.items():
+        bad = [key for key in ("verified", "tamper_rejected", "host_verified_evm_transcript",
+                               "default_transcript_rejected", "cli_calldata_equal",
+                               "short_calldata_reverts") if key in row and not row[key]]
+        if bad:
+            raise AssertionError(f"evm phase, {name}: {bad} failed")
+        if name == "conv2d_mnist" and row["k"] != K20:
+            raise AssertionError(f"evm phase: conv2d_mnist keyed at k = {row['k']}")
+        if name == "mlp_4d" and any(v != 0 for k, v in row["cli"].items()
+                                    if not k.startswith("verify-evm ")):
+            raise AssertionError(f"evm phase: a CLI subcommand failed: {row['cli_last_lines']}")
+        missing = [k for k in row["launches"] if k != "point_dbl" and row["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the {name} EVM prove: {missing}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the mesh -- four shards on the card against the single-device path
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_MSM_K = 20
+MESH_NTT_COLUMNS = 8
+
+
+def mesh(dev, rng, stand_in, srs_path=None):
+    """Phase 10: `make_mesh(devices=[dev] * 4)`, four shards standing in for
+    four cards (and, where the machine has two cards or more, a mesh of up to
+    four distinct cards too), each check against the single-device path:
+    `msm_sharded` of the first 2^20 points of the k = 20 SRS (`srs_path`,
+    the conv phase's; made by gen_srs(20) when None) with seeded scalars,
+    affine-equal to `msm.msm_multi`; `ntt_sharded_batched` of 8 x 2^23,
+    forward and inverse, word-equal to `ntt.ntt` / `ntt.intt`;
+    `to_ext_sharded` of 8 columns of 2^20, word-equal to
+    `coeff_to_extended(intt(.))`; and the k = 14 stand-in's seeded proof
+    with the mesh set (`stand_in`: (srs, pk, asg, the proof's JSON without
+    a mesh)), byte-equal to the proof without it and verified. Launch counts
+    are reset just before that prove and read just after. Returns them."""
+    import torch
+    from ezkl_tpu_torch.fieldmath import curve, limbs
+    from ezkl_tpu_torch.fieldmath.spec import bn254_fr
+    from ezkl_tpu_torch.kernels import build, msm, ntt
+    from ezkl_tpu_torch.parallel import sharded
+    from ezkl_tpu_torch.plonk import prover, srs as srsmod, verifier
+    from ezkl_tpu_torch.plonk.domain import domain
+
+    FR = bn254_fr()
+    srs_k14, pk, asg, baseline = stand_in
+    meshes = {f"stand-in: {MESH_SHARDS} shards on {dev}": sharded.make_mesh(
+        devices=[dev] * MESH_SHARDS)}
+    count = torch.cuda.device_count()
+    if count >= 2:
+        meshes[f"{min(count, MESH_SHARDS)} distinct cards"] = sharded.make_mesh(
+            min(count, MESH_SHARDS))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+
+    def field(*shape, mont=True):
+        v = torch.randint(0, 1 << 31, (8,) + shape, generator=gen, device=dev,
+                          dtype=torch.int64)
+        v[7] &= 0x0FFFFFFF                               # below the modulus
+        v = v.to(torch.int32)
+        return limbs.to_mont(FR, v) if mont else v
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    n = 1 << MESH_MSM_K
+    if srs_path is not None:
+        srs20 = srsmod.load(srs_path, dev)
+    else:
+        srs20 = srsmod.gen_srs(MESH_MSM_K, device=dev)
+    pts = srs20.g1.map(lambda a: a[:, :n].contiguous())
+    del srs20
+    scalars = field(n, mont=False)
+    ext_k = K20_EXT
+    x = field(MESH_NTT_COLUMNS, 1 << ext_k)
+    dom = domain(MESH_MSM_K, extended_k=ext_k)
+    cols = field(MESH_NTT_COLUMNS, n).movedim(1, 0).contiguous()     # (8 columns, 8, 2^20)
+
+    single = {}
+    want_msm, single["msm_s"] = timed(lambda: msm.msm_multi(pts, scalars[None], affine=True))
+    want_msm = curve.decode_points(want_msm)[0]
+    want_fwd, single["ntt_s"] = timed(lambda: ntt.ntt(FR, x))
+    want_inv, single["intt_s"] = timed(lambda: ntt.intt(FR, want_fwd))
+    inverse_round_trip = torch.equal(want_inv, x)
+    del want_inv
+    want_ext, single["to_ext_s"] = timed(
+        lambda: dom.coeff_to_extended(ntt.intt(FR, cols.movedim(1, 0))).movedim(1, 0))
+    _, single["prove_s"] = timed(lambda: prover.create_proof(pk, srs_k14, asg, seed=SEED))
+
+    rows, mesh_launches = {}, None
+    for label, m in meshes.items():
+        r = {"devices": [str(d) for d in m]}
+        got, r["msm_s"] = timed(lambda: sharded.msm_sharded(m, pts, scalars, affine=True))
+        r["msm_equal"] = curve.decode_points(got.map(lambda a: a[:, None]))[0] == want_msm
+        got, r["ntt_s"] = timed(lambda: sharded.ntt_sharded_batched(m, FR, x))
+        r["ntt_equal"] = torch.equal(got, want_fwd)
+        got, r["intt_s"] = timed(lambda: sharded.ntt_sharded_batched(m, FR, want_fwd,
+                                                                     inverse=True))
+        r["intt_equal"] = torch.equal(got, x)
+        del got
+        got, r["to_ext_s"] = timed(lambda: sharded.to_ext_sharded(m, dom, cols))
+        r["to_ext_equal"] = torch.equal(got, want_ext)
+        del got
+        torch.cuda.empty_cache()
+        sharded.set_mesh(m)
+        build.reset_launches()
+        try:
+            proof, r["prove_s"] = timed(lambda: prover.create_proof(pk, srs_k14, asg, seed=SEED))
+        finally:
+            sharded.set_mesh(None)
+        r["launches"] = dict(build.LAUNCHES)
+        if mesh_launches is None:
+            mesh_launches = r["launches"]
+        r["proof_equal"] = proof.to_json() == baseline
+        r["proof_verified"] = verifier.verify(pk.vk, srs_k14.g2, srs_k14.s_g2, proof)
+        rows[label] = r
+    emit({"phase": "mesh", "shards": MESH_SHARDS, "cards": count, "msm_points": n,
+          "ntt": f"{MESH_NTT_COLUMNS} x 2^{ext_k}",
+          "to_ext": f"{MESH_NTT_COLUMNS} x 2^{MESH_MSM_K} -> 2^{ext_k}", "prove_k": K,
+          "single_device": single, "single_inverse_round_trip": inverse_round_trip,
+          "meshes": rows})
+    for label, r in rows.items():
+        bad = [k for k in ("msm_equal", "ntt_equal", "intt_equal", "to_ext_equal",
+                           "proof_equal", "proof_verified") if not r[k]]
+        if bad or not inverse_round_trip:
+            raise AssertionError(f"mesh phase, {label}: {bad} differ from one device")
+        missing = [k for k in r["launches"] if k != "point_dbl" and r["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the mesh prove: {missing}")
+    return mesh_launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4, continued: crash and resume the k = 14 prove
 # ---------------------------------------------------------------------------
 
@@ -1699,7 +2022,6 @@ def main() -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as wd:
         resume(dev, pk, srs, asg, baseline, wd)
-    del pk, asg
     t_resume = time.perf_counter() - t0
     t0 = time.perf_counter()
     unfused_launches = check_outputs(dev, rng, srs)
@@ -1713,11 +2035,18 @@ def main() -> int:
         conv_launches, conv_srs_launches = conv(
             dev, wd / CONV_MODEL, (wd / GRAPH_MODEL / "proof.json", wd / GRAPH_MODEL / "vk.key"))
         t_conv = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        evm_launches = evm(dev, wd / CONV_MODEL, wd / GRAPH_MODEL)
+        t_evm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_launches = mesh(dev, rng, (srs, pk, asg, baseline), wd / CONV_MODEL / "kzg.srs")
+        t_mesh = time.perf_counter() - t0
+    del pk, asg
     t0 = time.perf_counter()
     poseidon(dev, rng)
     emit({"phase": "times", "kernels_s": t_kernels, "k20_kernels_s": t_k20,
           "prove_phase_s": t_prove, "resume_s": t_resume, "check_s": t_check,
-          "graph_s": t_graph, "conv2d_mnist_s": t_conv,
+          "graph_s": t_graph, "conv2d_mnist_s": t_conv, "evm_s": t_evm, "mesh_s": t_mesh,
           "poseidon_s": time.perf_counter() - t0})
 
     # launches: K1 (each form) to K8 from the graph phase's warm prove; K9
@@ -1745,7 +2074,9 @@ def main() -> int:
                  "ms": k20_rows[name]["ms"], "bound_ms": k20_rows[name]["bound_ms"],
                  "bound_by": k20_rows[name]["bound_by"],
                  "max_abs_err": k20_rows[name]["max_abs_err"],
-                 "checked": k20_rows[name]["checked"], "shape": _shape(k20_rows[name])}}
+                 "checked": k20_rows[name]["checked"], "shape": _shape(k20_rows[name])},
+         "evm_launches": {path: evm_launches[path][name] for path in evm_launches},
+         "mesh_launches": mesh_launches[name]}
         for name, (src, rep) in KERNEL_META.items()],
         "create_proof_point_dbl_launches": launches["point_dbl"],
         "unfused_msm_point_dbl_launches": unfused_launches["point_dbl"]})

@@ -10,14 +10,20 @@
     python -m ezkl_tpu_torch setup -M model.compiled -D input.json
     python -m ezkl_tpu_torch prove -M model.compiled -D input.json
     python -m ezkl_tpu_torch verify
+    python -m ezkl_tpu_torch create-evm-verifier --srs-path kzg14.srs
+    python -m ezkl_tpu_torch deploy-evm
+    python -m ezkl_tpu_torch verify-evm
+    python -m ezkl_tpu_torch encode-evm-calldata
     python -m ezkl_tpu_torch aggregate --proof-paths a.json b.json --vk-paths a.key b.key
     python -m ezkl_tpu_torch verify-aggr --vk-paths a.key b.key
     python -m ezkl_tpu_torch table -M network.onnx
     python -m ezkl_tpu_torch gen-random-data -M network.onnx -D input.json
 
 Every subcommand takes `--device {cuda,cpu}` (default: the card) and
-`--log-level`. The EVM subcommands of the JAX package's CLI wait for the
-port's `evm/`.
+`--log-level`. The EVM subcommands run on the host (the in-repo EVM);
+`create-evm-verifier` loads the SRS onto the device. A proof the EVM
+verifier accepts comes from `api.prove(..., transcript="evm")`: `prove`
+takes no transcript here, as in the JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -125,6 +131,19 @@ def main(argv=None):
     p = cmd("swap-proof-commitments")
     p.add_argument("--witness-path", default="witness.json")
     p = cmd("gen-vk")
+    cmd("encode-evm-calldata")
+    p = cmd("create-evm-verifier")
+    p.add_argument("--sol-code-path", default="Verifier.sol")
+    p.add_argument("--reusable", action="store_true",
+                   help="split constants into a VKA data contract "
+                        "(<name>VKA.sol); verifier takes the VKA address")
+    p = cmd("deploy-evm")
+    p.add_argument("--bin-path", default="Verifier.bin")
+    p.add_argument("--addr-path", default="contract.addr")
+    p.add_argument("--chain-path", default="evm_chain.json")
+    p = cmd("verify-evm")
+    p.add_argument("--addr-path", default="contract.addr")
+    p.add_argument("--chain-path", default="evm_chain.json")
     p = cmd("aggregate")
     p.add_argument("--proof-paths", nargs="+", default=["proof.json"])
     p.add_argument("--vk-paths", nargs="+", default=["vk.key"])
@@ -196,6 +215,23 @@ def main(argv=None):
     elif c == "gen-vk":
         api.gen_vk_from_pk(ns.pk_path, ns.vk_path, device=dev)
         print(f"vk written to {ns.vk_path}")
+    elif c == "encode-evm-calldata":
+        data = api.encode_evm_calldata(ns.proof_path,
+                                       ns.output or "calldata.bin")
+        print(f"calldata ({len(data)} bytes) -> {ns.output or 'calldata.bin'}")
+    elif c == "create-evm-verifier":
+        api.create_evm_verifier(ns.vk_path, ns.srs_path, ns.sol_code_path,
+                                ns.settings_path, reusable=ns.reusable, device=dev)
+        print(f"Solidity verifier -> {ns.sol_code_path}"
+              + (" (+ VKA data contract)" if ns.reusable else ""))
+    elif c == "deploy-evm":
+        addr = api.deploy_evm(ns.bin_path, ns.addr_path, ns.chain_path)
+        print(f"deployed verifier at {addr} (in-repo EVM, "
+              f"state -> {ns.chain_path})")
+    elif c == "verify-evm":
+        ok = api.verify_evm(ns.proof_path, ns.addr_path, ns.chain_path)
+        print("proof verified on EVM" if ok else "EVM VERIFICATION FAILED")
+        sys.exit(0 if ok else 1)
     elif c == "aggregate":
         vkp = ns.vk_paths if len(ns.vk_paths) > 1 else ns.vk_paths[0]
         agg = api.aggregate(ns.proof_paths, vkp,

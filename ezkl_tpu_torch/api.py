@@ -9,7 +9,8 @@ layer (settings, compile, the layout of a witness) and aggregation run
 on the host. `prove` also takes `checkpoint_dir` (restartable phases,
 `plonk/prover.py` `_ProveCheckpoint`; EZKL_TPU_CKPT_DIR sets it too). The
 EVM functions (`create_evm_verifier`, `deploy_evm`, `verify_evm`,
-`encode_evm_calldata`) wait for the port's `evm/`.
+`encode_evm_calldata`) are host code (`evm/`): only `create_evm_verifier`
+reads the SRS, for its G2 points.
 
 Artifact files:
   settings.json    GraphSettings (run_args + sizing)
@@ -19,6 +20,11 @@ Artifact files:
   proof.json       proof (points/evals/instances, hex JSON)
   proof_aggr.json  aggregate of N proofs (plonk/aggregate.py)
   kzg{k}.srs       SRS (see plonk/srs.py)
+  Verifier.sol     Solidity verifier (+ VerifierVKA.sol when reusable)
+  Verifier.bin     its deployable initcode, run on the in-repo EVM
+  contract.addr    the deployed verifier's address
+  evm_chain.json   the in-repo EVM's state (address -> runtime code)
+  calldata.bin     encode_evm_calldata's bytes (proof, then instances)
 """
 
 from __future__ import annotations
@@ -395,6 +401,120 @@ def verify_aggr(aggr_path="proof_aggr.json", vk_paths="vk.key",
         return False
 
 
+def create_evm_verifier(vk_path="vk.key", srs_path=None,
+                        sol_path="Verifier.sol", settings_path=None,
+                        reusable: bool = False,
+                        n_inst: int | None = None, device=None) -> str:
+    """Generate the EVM verifier artifacts for this circuit (reference
+    `create-evm-verifier`, `src/execute.rs:1306-1340`). Prove with
+    transcript='evm' for proofs the contract accepts.
+
+    Always writes the Solidity source (for users with solc/foundry). When
+    the instance count is known (`n_inst`, or a proof.json in the directory
+    of `sol_path`, as the JAX package looks for it), ALSO writes
+    `<sol_path stem>.bin` — deployable initcode emitted directly by
+    `evm.bytecode` — which `deploy_evm`/`verify_evm` run on the in-repo EVM.
+
+    reusable=True additionally writes `<sol_path stem>VKA.sol`: the
+    verifier then takes the VKA data-contract address as its first
+    argument and extcodecopies the per-circuit constants from it — the
+    reference's reusable-verifier + VKA registration pattern
+    (`src/commands.rs:148`). The SRS loads onto `device` (only its G2
+    points are read)."""
+    from .evm import generate_verifier
+    vk = serde_mod.load_vk(vk_path)
+    if srs_path and pathlib.Path(srs_path).exists():
+        s = srsmod.load(srs_path, device)
+    else:
+        s = srsmod.get_or_create(vk.k, device)
+    sol = generate_verifier(vk, s.g2, s.s_g2, reusable=reusable)
+    p = pathlib.Path(sol_path)
+    p.write_text(sol)
+    if reusable:
+        from .evm.solidity import generate_vka
+        vka_path = p.with_name(p.stem + "VKA.sol")
+        vka_path.write_text(generate_vka(vk, s.g2, s.s_g2))
+    if n_inst is None:
+        proof_near = p.parent / "proof.json"
+        if proof_near.exists():
+            pf = Proof.from_json(proof_near.read_text())
+            n_inst = sum(len(c) for c in pf.instances)
+    if n_inst is not None and not reusable:
+        from .evm import bytecode as bytecode_mod
+        rt = bytecode_mod.emit_verifier(vk, s.g2, s.s_g2, n_inst)
+        p.with_suffix(".bin").write_bytes(bytecode_mod.initcode(rt))
+    return sol
+
+
+def deploy_evm(bin_path="Verifier.bin", addr_path="contract.addr",
+               chain_path="evm_chain.json", rpc_url=None) -> str:
+    """Deploy the bytecode verifier artifact (reference
+    `deploy_contract_via_solidity`, src/eth.rs:162).
+
+    The "chain" is the in-repo EVM interpreter (`evm.vm`) persisted to
+    `chain_path` — the local-devnet analog of the reference's anvil flow.
+    The initcode runs for real: the constructor's RETURN defines the
+    deployed runtime code. A live RPC endpoint is refused: the package
+    makes no network calls."""
+    if rpc_url is not None:
+        raise RuntimeError(
+            "deploy-evm to a live RPC endpoint needs network access, which "
+            "this package does not use. Deploy Verifier.bin with your own "
+            "toolchain (reference flow: src/eth.rs:162), or omit rpc_url "
+            "to deploy on the in-repo EVM.")
+    from .evm import vm as evm_vm
+    initcode = pathlib.Path(bin_path).read_bytes()
+    E = _load_chain(evm_vm, chain_path)
+    addr = E.deploy(initcode)
+    _save_chain(E, chain_path)
+    pathlib.Path(addr_path).write_text(hex(addr))
+    return hex(addr)
+
+
+def verify_evm(proof_path="proof.json", addr_path="contract.addr",
+               chain_path="evm_chain.json", rpc_url=None) -> bool:
+    """Verify a proof against the DEPLOYED verifier (reference
+    `verify_proof_via_solidity`, src/eth.rs:238): encode calldata, execute
+    the contract's code on the EVM, read the returned word. A revert is
+    False; a returned word other than 1 raises, as in the JAX package."""
+    if rpc_url is not None:
+        raise RuntimeError(
+            "verify-evm against a live RPC endpoint needs network access, "
+            "which this package does not use; omit rpc_url to verify on the "
+            "in-repo EVM.")
+    from .evm import vm as evm_vm
+    calldata = encode_evm_calldata(proof_path, output=None)
+    addr = int(pathlib.Path(addr_path).read_text().strip(), 16)
+    E = _load_chain(evm_vm, chain_path)
+    try:
+        out = E.call(addr, calldata)
+    except evm_vm.EvmRevert:
+        return False
+    ok = out == (1).to_bytes(32, "big")
+    if not ok:
+        raise RuntimeError("proof rejected by on-chain verifier")
+    return True
+
+
+def _load_chain(evm_vm, chain_path):
+    E = evm_vm.EVM()
+    p = pathlib.Path(chain_path)
+    if p.exists():
+        state = json.loads(p.read_text())
+        for a, code in state.get("code", {}).items():
+            E.code[int(a, 16)] = bytes.fromhex(code)
+        E._next_addr = int(state.get("next_addr", "0x1000"), 16)
+    return E
+
+
+def _save_chain(E, chain_path):
+    state = {
+        "code": {hex(a): c.hex() for a, c in E.code.items()},
+        "next_addr": hex(E._next_addr),
+    }
+    pathlib.Path(chain_path).write_text(json.dumps(state))
+
+
 def split_model(model_path, input_path=None, parts: int = 2,
                 output_prefix: str | None = None) -> list:
     """Split a sequential ONNX model into `parts` linked sub-models for
@@ -504,6 +624,40 @@ def gen_vk_from_pk(pk_path="pk.key", vk_path="vk.key", device=None):
     pk = serde_mod.load_pk(pk_path, device)
     serde_mod.save_vk(pk.vk, vk_path)
     return vk_path
+
+
+def encode_evm_calldata(proof_path="proof.json", output="calldata.bin") -> bytes:
+    """Canonical byte encoding of (proof, instances) — the calldata the EVM
+    verifier consumes (reference `encode_calldata`, pfsys/mod.rs:70):
+    all commitments as 32B||32B big-endian affine pairs in transcript
+    order, then evals, then instances."""
+    proof = Proof.from_json(pathlib.Path(proof_path).read_text())
+    out = bytearray()
+
+    def pt(p):
+        if p is None:
+            out.extend(b"\x00" * 64)
+        else:
+            out.extend(int(p[0]).to_bytes(32, "big"))
+            out.extend(int(p[1]).to_bytes(32, "big"))
+
+    for group in (proof.advice_commitments, proof.lookup_m_commitments,
+                  proof.perm_z_commitments, proof.lookup_phi_commitments,
+                  proof.shuffle_z_commitments,
+                  [proof.random_commitment], proof.h_commitments):
+        for p in group:
+            pt(p)
+    for label in sorted(proof.evals):
+        out.extend(int(proof.evals[label]).to_bytes(32, "big"))
+    for p in proof.opening_commitments:
+        pt(p)
+    for col in proof.instances:
+        for v in col:
+            out.extend(int(v).to_bytes(32, "big"))
+    data = bytes(out)
+    if output:
+        pathlib.Path(output).write_bytes(data)
+    return data
 
 
 def poseidon_hash(values: list[int]) -> int:

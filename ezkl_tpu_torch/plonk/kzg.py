@@ -1,11 +1,12 @@
-"""KZG polynomial commitments and openings (port of `ezkl_tpu/plonk/kzg.py`,
-without the mesh branch).
+"""KZG polynomial commitments and openings (port of `ezkl_tpu/plonk/kzg.py`).
 
 commit(evals over H) = iNTT then the fused Pippenger MSM over the monomial SRS,
 whose points are affine (z = 1), so the MSM runs its mixed-add scan
 (`affine=True`), as the JAX package's commitments do; opening
 witnesses are computed in evaluation form, W = (p - p(z)) / (X - z) on H via
-one `batch_inv`; p(z) by the barycentric formula.
+one `batch_inv`; p(z) by the barycentric formula. Under an active mesh
+(`parallel.sharded.set_mesh`, EZKL_TPU_MESH) whose shards of the points are
+a power of two, each column is committed by `sharded.msm_sharded`.
 """
 
 from __future__ import annotations
@@ -16,13 +17,26 @@ from ..fieldmath import limbs, curve
 from ..fieldmath.spec import bn254_fr, NWORDS
 from ..kernels import msm as msmmod
 from ..kernels import ntt as nttmod
+from ..parallel import sharded
 from .srs import SRS
 
 FR = bn254_fr()
 
 
+def _mesh_for(m: int):
+    """The active mesh if m points split into power-of-two shards on it,
+    else None (`ezkl_tpu/plonk/kzg.py:_commit`)."""
+    mesh = sharded.active_mesh()
+    if mesh is None:
+        return None
+    d = len(mesh)
+    local = m // d if m % d == 0 else 0
+    return mesh if local >= 1 and (local & (local - 1)) == 0 else None
+
+
 def _commit_points(srs: SRS, vals: torch.Tensor, lagrange: bool) -> curve.PointP:
-    """vals (C, 8, m) Montgomery -> (C,) projective commitments."""
+    """vals (C, 8, m) Montgomery -> (C,) projective commitments: one batched
+    MSM, or under a mesh one sharded MSM per column."""
     m = vals.shape[-1]
     assert m <= srs.n, "poly too long for SRS"
     pts = srs.g1.map(lambda a: a[..., :m])
@@ -30,6 +44,11 @@ def _commit_points(srs: SRS, vals: torch.Tensor, lagrange: bool) -> curve.PointP
     if lagrange:
         v = nttmod.intt(FR, v)
     raw = limbs.from_mont(FR, v)
+    mesh = _mesh_for(m)
+    if mesh is not None:
+        cols = [sharded.msm_sharded(mesh, pts, raw[:, i], affine=True).map(
+            lambda a: a.to(vals.device)) for i in range(raw.shape[1])]
+        return curve.PointP(*(torch.stack([p[j] for p in cols], dim=-1) for j in range(3)))
     return msmmod.msm_multi(pts, raw.movedim(1, 0), c=msmmod.default_window_bits(m), affine=True)
 
 
@@ -48,7 +67,8 @@ def commit_many(srs: SRS, stacks, lagrange: bool = True) -> list:
 
     stacks: (C, 8, m) tensor or a list of (8, m) tensors. Returns a list of C
     host affine points (transcript-ready), in order. C is padded to a power
-    of two with zero polys, as in the JAX package (`kzg.py:140-143`)."""
+    of two with zero polys, as in the JAX package (`kzg.py:140-143`), except
+    under a mesh, which commits column by column."""
     if isinstance(stacks, (list, tuple)):
         if not stacks:
             return []
@@ -57,7 +77,7 @@ def commit_many(srs: SRS, stacks, lagrange: bool = True) -> list:
     if C == 0:
         return []
     Cp = 1 << (C - 1).bit_length()
-    if Cp != C:
+    if Cp != C and _mesh_for(stacks.shape[-1]) is None:
         stacks = torch.cat([stacks, torch.zeros((Cp - C,) + stacks.shape[1:],
                                                 dtype=stacks.dtype, device=stacks.device)])
     out = _commit_points(srs, stacks, lagrange)

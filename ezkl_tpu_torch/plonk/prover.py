@@ -18,7 +18,9 @@ kernel. The quotient (phase 5) bounds its device memory for k = 20 on one
 card: the columns reach the extended coset in groups of columns, and each
 term is folded into a running sum as it is built. `_ProveCheckpoint` makes
 the phases restartable, with the JAX package's directory key and file
-layout.
+layout. Under an active mesh (`parallel.sharded`) the commitments and the
+transforms to the extended coset run sharded; the proof's bytes do not
+change.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 from ..fieldmath import limbs
 from ..fieldmath.spec import bn254_fr, NLIMBS, NWORDS
 from ..kernels import ntt as nttmod
+from ..parallel import sharded
 from . import kzg
 from .assign import Assignment
 from .cs import FIXED, ADVICE, INSTANCE, last_active_row
@@ -325,10 +328,19 @@ class ProverKernels:
         rows = [(s, i) for s in stacks for i in range(s.shape[0])]
         ext_all = torch.empty((len(rows), NWORDS, self.ext), dtype=torch.int32, device=dev)
         per = max(1, EXT_GROUP_ELEMENTS // self.ext)
+        # under a mesh whose shards divide the extended domain, the group's
+        # transforms run four-step sharded (`ezkl_tpu/plonk/prover.py:375-385`),
+        # word for word the single-device result
+        mesh = sharded.active_mesh()
+        if mesh is not None and sharded.shard_factors(mesh, self.ext) is None:
+            mesh = None
         for c0 in range(0, len(rows), per):
             big = torch.stack([s[i] for s, i in rows[c0:c0 + per]], dim=1)    # (8, g, n)
-            ext_all[c0:c0 + per] = self.dom.coeff_to_extended(
-                nttmod.intt(FR, big)).movedim(1, 0)
+            if mesh is not None:
+                ext_all[c0:c0 + per] = sharded.to_ext_sharded(mesh, self.dom, big.movedim(1, 0))
+            else:
+                ext_all[c0:c0 + per] = self.dom.coeff_to_extended(
+                    nttmod.intt(FR, big)).movedim(1, 0)
             del big
         off = 0
 

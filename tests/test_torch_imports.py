@@ -1,10 +1,12 @@
 """Guards of the PyTorch/CUDA port (`ezkl_tpu_torch`):
 
-* neither the package nor its card scripts (`chip_smoke.py`,
+* neither the package (its EVM `evm/` and its mesh `parallel/` included)
+  nor its card scripts (`chip_smoke.py`,
   `tools/profile_torch_prove.py`, `tools/bench_msm_kernels.py`,
   `tools/pair_k1_k9.py`, `tools/run_chip_phases.py`) import
   `jax` or the JAX package `ezkl_tpu` (checked on the source with `ast`,
-  and for the API and the CLI also in a fresh interpreter);
+  and for the API, the CLI, the EVM and the mesh also in a fresh
+  interpreter);
 * every kernel wrapper (K1 mont_mul in each broadcast form and its chain
   forms mont_pow and mont_scan, K2 ntt_stages and its one-stage entry bfly,
   K3 point_add at each team size and its tree form point_reduce, K9
@@ -67,13 +69,21 @@ def test_port_never_imports_jax_or_the_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_scan_covers_the_evm_and_the_mesh():
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    for sub in ("evm/__init__.py", "evm/vm.py", "evm/solidity.py", "evm/bytecode.py",
+                "parallel/__init__.py", "parallel/sharded.py"):
+        assert f"ezkl_tpu_torch/{sub}" in names
+
+
 def test_api_and_cli_import_neither_jax_nor_the_jax_package():
-    """In a fresh interpreter, importing the port's API and CLI leaves no
-    `jax` or `ezkl_tpu` module behind (catches imports inside functions
-    that run at import time, which the scan above cannot see)."""
+    """In a fresh interpreter, importing the port's API, CLI, EVM and mesh
+    leaves no `jax` or `ezkl_tpu` module behind (catches imports inside
+    functions that run at import time, which the scan above cannot see)."""
     import subprocess
     import sys
-    code = ("import sys, ezkl_tpu_torch.api, ezkl_tpu_torch.__main__; "
+    code = ("import sys, ezkl_tpu_torch.api, ezkl_tpu_torch.__main__, "
+            "ezkl_tpu_torch.evm.vm, ezkl_tpu_torch.evm.bytecode, ezkl_tpu_torch.parallel; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ezkl_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), capture_output=True,
                          text=True, timeout=300)

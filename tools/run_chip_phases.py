@@ -9,7 +9,10 @@ Phases: `kernels` (every kernel at the k = 14 shapes), `k20` (the kernels
 at the k = 20 path's widths), `prove` (the k = 14 stand-in), `resume` (crash
 and resume of the stand-in's prove; runs `prove` first), `check`, `graph`
 (mlp_4d), `conv` (conv2d_mnist at k = 20 and the aggregate; runs `graph`
-first), `poseidon`. Exits non-zero if a phase fails.
+first), `evm` (the EVM verifier on conv2d_mnist and mlp_4d; runs `graph`
+and `conv` first), `mesh` (the four-shard mesh; runs `prove` first, and
+reads the k = 20 SRS of `conv` when that ran, else makes it), `poseidon`.
+Exits non-zero if a phase fails.
 """
 
 from __future__ import annotations
@@ -57,12 +60,20 @@ def main(names) -> int:
                     cs.resume(dev, pk, stand_in[0], asg, baseline, wd / "resume")
                 if name == "check":
                     cs.check_outputs(dev, rng, stand_in[0])
-            elif name in ("graph", "conv"):
+            elif name in ("graph", "conv", "evm"):
                 if not (wd / cs.GRAPH_MODEL / "vk.key").exists():
                     cs.graph(dev, wd / cs.GRAPH_MODEL)
-                if name == "conv":
+                if name != "graph" and not (wd / cs.CONV_MODEL / "vk.key").exists():
                     cs.conv(dev, wd / cs.CONV_MODEL, (wd / cs.GRAPH_MODEL / "proof.json",
                                                       wd / cs.GRAPH_MODEL / "vk.key"))
+                if name == "evm":
+                    cs.evm(dev, wd / cs.CONV_MODEL, wd / cs.GRAPH_MODEL)
+            elif name == "mesh":
+                if stand_in is None:
+                    stand_in = cs.prove(dev, rng)
+                srs20 = wd / cs.CONV_MODEL / "kzg.srs"
+                cs.mesh(dev, rng, (stand_in[0], *stand_in[3]),
+                        srs20 if srs20.exists() else None)
             elif name == "poseidon":
                 cs.poseidon(dev, rng)
             else:
