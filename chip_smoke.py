@@ -125,6 +125,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
               seed-1 proof with the mesh set (byte-equal to phase 4's, and
               verified; K1-K8 launched in it). Seconds of each beside the
               single-device ones.
+11. families -- the models of `tests/torch_port_graph_models.py` through the
+              file API on the card, each: gen_settings, compile, gen_srs,
+              gen_witness, setup, prove(seed=1) cold and warm (the card
+              widths: see below), verify, and a
+              tampered proof (its first instance plus one; with no instance,
+              its first eval's low bit flipped) rejected, with seconds, peak
+              device bytes and K1-K9 launches per step (K1-K8 must run in
+              the last prove, K9 in gen_srs). The card widths: a
+              bidirectional LSTM (input 16, hidden 32, 8 steps) settling on
+              k = 17 and a self-attention block (sequence 32, width 64)
+              on k = 18, proved once here to keep the script's time
+              (`tools/run_chip_phases.py families` proves them again warm
+              and under torch.profiler for the device's busy time), their
+              outputs within 0.15 and 0.25 of the float64 forward. The small models lstm_bidi,
+              attn_small, gather_dyn (a gather whose table is advice),
+              bmm_einsum and mlp_4d_kzg_io (committed input and output);
+              where the JAX package's files are frozen
+              (`tests/fixtures/torch_port/graph_<model>/`), settings.json,
+              model.compiled, witness.json, vk.key and the seeded proof.json
+              must equal them byte for byte. Then the split flow: mlp_4d's
+              two parts (part 1's input is part 0's rescaled output on the
+              card), their boundary commitments equal and carried in each
+              proof, a doctored commitment swapped in refused and its proof
+              rejected, the aggregate of the two part proofs accepted by
+              `verify_aggr` and rejected with an inner eval flipped.
 7. poseidon -- the device Poseidon `hash_fixed_len` over 2^14 two-element
               inputs on the card, bit-exact against `host_hash` on a sample
               of 64 of them; its products are K1 launches.
@@ -135,9 +160,10 @@ from the graph phase's warm prove, K9 from its gen_srs; `standin_launches`
 from phase 4's create_proof and gen_srs; `k20`: launches in the warm
 conv2d_mnist prove (K9: gen_srs(20)), device ms and bound at its widths;
 `evm_launches`: in the two EVM proves of phase 9; `mesh_launches`: in the
-stand-in's prove under the four-shard mesh of phase 10),
+stand-in's prove under the four-shard mesh of phase 10; `families_launches`:
+in each model's last prove of phase 11, K9 in its gen_srs),
 the nvidia-smi line, and last `{"ok": true, "device": {...}}`. The phases
-run in the order 3, 4 (with resume), 5, 6, 8, 9, 10, 7.
+run in the order 3, 4 (with resume), 5, 6, 8, 9, 10, 11, 7.
 """
 
 from __future__ import annotations
@@ -1041,24 +1067,30 @@ GRAPH_MODEL = "mlp_4d"
 GRAPH_LOGROWS = 14
 
 
-def mlp_4d(writer):
-    """`examples/gen_graded.py`'s mlp_4d with `writer` (an `onnx_writer`):
-    (onnx bytes, input.json dict), the same draws of default_rng(42) in the
-    same order."""
+def mlp_4d_draws():
+    """`examples/gen_graded.py`'s mlp_4d initializers (Gemm weights stored
+    transposed) and input: the same draws of default_rng(42) in the same
+    order."""
     rng = np.random.default_rng(42)
     w0 = rng.uniform(-1, 1, (4, 4)).astype(np.float32)
     b0 = rng.uniform(-0.5, 0.5, (4,)).astype(np.float32)
     w1 = rng.uniform(-1, 1, (4, 4)).astype(np.float32)
     b1 = rng.uniform(-0.5, 0.5, (4,)).astype(np.float32)
+    x = rng.uniform(-1, 1, (1, 4)).astype(np.float64)
+    return {"w0": w0.T.copy(), "b0": b0, "w1": w1.T.copy(), "b1": b1}, x
+
+
+def mlp_4d(writer):
+    """`examples/gen_graded.py`'s mlp_4d with `writer` (an `onnx_writer`):
+    (onnx bytes, input.json dict)."""
+    weights, x = mlp_4d_draws()
     nodes = [
         writer.node("Gemm", ["x", "w0", "b0"], ["h0"], name="l0"),
         writer.node("Relu", ["h0"], ["a0"], name="relu0"),
         writer.node("Gemm", ["a0", "w1", "b1"], ["h1"], name="l1"),
         writer.node("Relu", ["h1"], ["y"], name="relu1"),
     ]
-    onnx = writer.model(nodes, {"x": (1, 4)}, {"y": (1, 4)},
-                        {"w0": w0.T.copy(), "b0": b0, "w1": w1.T.copy(), "b1": b1})
-    x = rng.uniform(-1, 1, (1, 4)).astype(np.float64)
+    onnx = writer.model(nodes, {"x": (1, 4)}, {"y": (1, 4)}, weights)
     return onnx, {"input_data": [x.reshape(-1).tolist()]}
 
 
@@ -1691,6 +1723,263 @@ def mesh(dev, rng, stand_in, srs_path=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: families -- recurrent, attention, dynamic-gather and committed-I/O
+# circuits through the file API
+# ---------------------------------------------------------------------------
+
+# the card's widths (`tests/torch_port_graph_models.py` CARD_MODELS): the k
+# the settings must settle on, and the largest error of the rescaled outputs
+# against the float64 forward (the LSTM: `tests/test_recurrent.py`'s bound
+# at the same scale 7)
+FAMILY_CARD = {"lstm_bidi_h32": (17, 0.15), "attn_s32_d64": (18, 0.25)}
+# the small models proved on the card; those with frozen JAX-package proofs
+# must reproduce vk.key and proof.json byte for byte
+FAMILY_SMALL = ("lstm_bidi", "attn_small", "gather_dyn", "bmm_einsum", "mlp_4d_kzg_io")
+SPLIT_PARTS = ("mlp_4d_split_0", "mlp_4d_split_1")
+
+
+def graph_models():
+    """`tests/torch_port_graph_models.py`, the models' constructors and their
+    float64 forwards (numpy only)."""
+    tests = str(pathlib.Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_port_graph_models
+    return torch_port_graph_models
+
+
+def _tamper(src, dst):
+    """The proof with its first instance plus one; one without instances
+    (committed inputs and outputs) gets its first eval's low bit flipped."""
+    pj = json.loads(pathlib.Path(src).read_text())
+    cells = [(i, j) for i, col in enumerate(pj["instances"]) for j in range(len(col))]
+    if cells:
+        i, j = cells[0]
+        pj["instances"][i][j] = hex(int(pj["instances"][i][j], 16) + 1)
+    else:
+        label = sorted(pj["evals"])[0]
+        pj["evals"][label] = hex(int(pj["evals"][label], 16) ^ 1)
+    pathlib.Path(dst).write_text(json.dumps(pj))
+    return "instance" if cells else "eval"
+
+
+def _device_busy(fn):
+    """(wall seconds, device busy seconds) of `fn()` under torch.profiler:
+    the summed durations of the card's kernels and copies."""
+    import torch
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
+    return wall, busy / 1e9
+
+
+def family_pipeline(dev, models, name, wd, witness_dir=None, warm=True, profile=False):
+    """One model of `torch_port_graph_models` through the API on the card in
+    `wd`: gen_settings, compile, gen_srs, gen_witness, setup, prove(seed=1)
+    (cold, and with `warm` again), verify, and the tampered proof rejected;
+    with `profile` one more prove under torch.profiler for the device's busy
+    time. Seconds, peak device bytes and K1-K9 launches per step. Returns
+    (row, witness)."""
+    import torch
+    from ezkl_tpu_torch import api
+    from ezkl_tpu_torch.graph import onnx_writer
+    from ezkl_tpu_torch.graph.run_args import RunArgs
+    from ezkl_tpu_torch.kernels import build
+    from ezkl_tpu_torch.plonk import prover, serde
+
+    wd = pathlib.Path(wd)
+    wd.mkdir(parents=True, exist_ok=True)
+    f = {p: str(wd / p) for p in (
+        "network.onnx", "input.json", "settings.json", "model.compiled", "kzg.srs",
+        "witness.json", "vk.key", "pk.key", "proof.json", "proof_warm.json",
+        "proof_prof.json", "proof_bad.json")}
+    onnx, inp = models.build(name, onnx_writer, witness_dir)
+    pathlib.Path(f["network.onnx"]).write_bytes(onnx)
+    pathlib.Path(f["input.json"]).write_text(json.dumps(inp))
+    seconds, peak, launches, phases = {}, {}, {}, {}
+
+    def step(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        peaks = list(prover.PHASE_PEAK_BYTES.values()) if label.startswith("prove") else []
+        peak[label] = max([torch.cuda.max_memory_allocated()] + peaks)
+        launches[label] = {k: v for k, v in build.LAUNCHES.items() if v}
+        if label.startswith("prove"):
+            phases[label] = {"seconds": dict(prover.PHASE_SECONDS),
+                             "peak_bytes": dict(prover.PHASE_PEAK_BYTES)}
+        return out
+
+    st = step("gen_settings", lambda: api.gen_settings(
+        f["network.onnx"], f["settings.json"], models.run_args(RunArgs, name)))
+    k = st.run_args.logrows
+    step("compile", lambda: api.compile_circuit(f["network.onnx"], f["settings.json"],
+                                                f["model.compiled"]))
+    step("gen_srs", lambda: api.gen_srs(f["kzg.srs"], k, device=dev))
+    wit = step("gen_witness", lambda: api.gen_witness(
+        f["model.compiled"], f["input.json"], f["witness.json"], srs_path=f["kzg.srs"],
+        device=dev))
+    step("setup", lambda: api.setup(f["model.compiled"], f["input.json"], f["kzg.srs"],
+                                    f["vk.key"], f["pk.key"], device=dev))
+    prove_args = (f["model.compiled"], f["input.json"], f["pk.key"], f["kzg.srs"])
+    step("prove_cold", lambda: api.prove(*prove_args, f["proof.json"], seed=SEED, device=dev))
+    if warm:
+        step("prove_warm", lambda: api.prove(*prove_args, f["proof_warm.json"], seed=SEED,
+                                             device=dev))
+    busy = None
+    if profile:
+        wall, busy_s = _device_busy(lambda: api.prove(*prove_args, f["proof_prof.json"],
+                                                      seed=SEED, device=dev))
+        busy = {"profiled_wall_s": wall, "device_busy_s": busy_s, "busy_share": busy_s / wall}
+    ok = step("verify", lambda: api.verify(f["proof.json"], f["vk.key"], f["kzg.srs"],
+                                           device=dev))
+    tamper = _tamper(f["proof.json"], f["proof_bad.json"])
+    rejected = not api.verify(f["proof_bad.json"], f["vk.key"], f["kzg.srs"], device=dev)
+    seeded = pathlib.Path(f["proof.json"]).read_bytes()
+    cs = serde.load_vk(f["vk.key"]).cs
+    row = {"model": name, "k": k, "num_rows": st.num_rows,
+           "lookups": st.required_lookups, "lookup_arguments": len(cs.lookups),
+           "columns": {"fixed": cs.num_fixed, "advice": cs.num_advice,
+                       "instance": cs.num_instance},
+           "challenges": cs.num_challenges, "seconds": seconds, "peak_bytes": peak,
+           "prove_phases": phases, "launches": launches, "busy": busy,
+           "verified": ok, "tamper": tamper, "tamper_rejected": rejected,
+           "warm_proof_equal": (pathlib.Path(f["proof_warm.json"]).read_bytes() == seeded
+                                if warm else None)}
+    fx = models.FIXTURES / f"graph_{name}"
+    if (fx / "proof.json").exists():
+        row["fixture_equal"] = {p: pathlib.Path(f[p]).read_bytes() == (fx / p).read_bytes()
+                                for p in ("settings.json", "model.compiled", "witness.json",
+                                          "vk.key", "proof.json")}
+    return row, wit
+
+
+def _check_family(row):
+    """The checks every family pipeline must pass; K1-K8 launched by the
+    last prove, K9 by gen_srs."""
+    name = row["model"]
+    if not (row["verified"] and row["tamper_rejected"]
+            and row["warm_proof_equal"] in (True, None)):
+        raise AssertionError(f"{name}: verified {row['verified']}, tampered proof rejected "
+                             f"{row['tamper_rejected']}, warm proof equal "
+                             f"{row['warm_proof_equal']}")
+    if not all(row.get("fixture_equal", {}).values()):
+        raise AssertionError(f"{name}: files differ from the JAX package's frozen ones: "
+                             f"{row['fixture_equal']}")
+    missing = [k for k in KERNEL_META if k != "point_dbl"
+               and _last_prove(row).get(k, 0) <= 0]
+    if missing or row["launches"]["gen_srs"].get("point_dbl", 0) <= 0:
+        raise AssertionError(f"{name}: kernels not launched: {missing}, gen_srs K9 "
+                             f"{row['launches']['gen_srs'].get('point_dbl', 0)}")
+
+
+def _last_prove(row):
+    """Launches of the pipeline's last (warm, else cold) prove."""
+    return row["launches"].get("prove_warm", row["launches"]["prove_cold"])
+
+
+def _rescaled_outputs(wit):
+    return np.concatenate([np.asarray(o, np.float64).reshape(-1)
+                           for o in wit["pretty_elements"]["rescaled_outputs"]])
+
+
+def families(dev, wd, once=False):
+    """Phase 11 in the directory `wd`: the card widths of the LSTM and the
+    attention block (`FAMILY_CARD`; a warm and a profiled prove after the
+    cold one, or with `once` the cold prove alone; outputs against the
+    float64 forward), the small models of `FAMILY_SMALL`, and the split flow
+    (both mlp_4d parts, the boundary commitments equal, a doctored
+    commitment swapped in refused and its proof rejected, the aggregate of
+    the two part proofs accepted by `verify_aggr` and rejected with an inner
+    eval flipped). One `families` line per model and one for the split.
+    Returns {model: launches of its last prove, K9 from its gen_srs}."""
+    from ezkl_tpu_torch import api
+    from ezkl_tpu_torch.fieldmath import hostcurve
+
+    models = graph_models()
+    wd = pathlib.Path(wd)
+    out = {}
+
+    def record(row):
+        emit({"phase": "families", **row})
+        _check_family(row)
+        out[row["model"]] = dict(_last_prove(row),
+                                 point_dbl=row["launches"]["gen_srs"].get("point_dbl", 0))
+
+    for name, (k, tol) in FAMILY_CARD.items():
+        row, wit = family_pipeline(dev, models, name, wd / name, warm=not once,
+                                   profile=not once)
+        got, want = _rescaled_outputs(wit), models.FLOAT_FORWARDS[name]().reshape(-1)
+        row.update(outputs_max_err=float(np.max(np.abs(got - want))), outputs_tol=tol,
+                   outputs_mean_err=float(np.mean(np.abs(got - want))))
+        if row["k"] != k:
+            emit({"phase": "families", **row})
+            raise AssertionError(f"{name} settled on k = {row['k']}, not {k}")
+        if not (got.shape == want.shape and row["outputs_max_err"] <= tol):
+            emit({"phase": "families", **row})
+            raise AssertionError(f"{name}: outputs off the float64 forward by "
+                                 f"{row['outputs_max_err']} > {tol}")
+        record(row)
+    for name in FAMILY_SMALL:
+        record(family_pipeline(dev, models, name, wd / name)[0])
+
+    # the split flow: part 1's input is part 0's rescaled output on the card
+    rows, wits = [], []
+    for name in SPLIT_PARTS:
+        row, wit = family_pipeline(dev, models, name, wd / name, witness_dir=lambda o: wd / o)
+        rows.append(row)
+        wits.append(wit)
+    for row in rows:
+        record(row)
+    pc = [w["processed_commitments"] for w in wits]
+    linked = pc[0]["polycommit"] == pc[1]["polycommit"] and len(pc[0]["polycommit"]) == 1
+    d = [wd / name for name in SPLIT_PARTS]
+    carried = all(
+        [[int(v, 16) for v in json.loads((di / "proof.json").read_text())["advice"][i]]
+         for i in p["advice_indices"]] ==
+        [[int(v, 16) for v in c] for c in p["polycommit"]] for di, p in zip(d, pc))
+    x, y = hostcurve.g1_mul(hostcurve.G1, 7)
+    doctored = json.loads(json.dumps(wits[0]))
+    doctored["processed_commitments"]["polycommit"][0] = [hex(x), hex(y)]
+    (wd / "witness_doctored.json").write_text(json.dumps(doctored))
+    swapped = wd / "proof_swapped.json"
+    swapped.write_bytes((d[0] / "proof.json").read_bytes())
+    swap_refused = not api.swap_proof_commitments(swapped, wd / "witness_doctored.json")
+    swap_rejected = not api.verify(swapped, d[0] / "vk.key", d[0] / "kzg.srs", device=dev)
+    proofs = [str(di / "proof.json") for di in d]
+    vks = [str(di / "vk.key") for di in d]
+    t0 = time.perf_counter()
+    agg = api.aggregate(proofs, vks, str(wd / "proof_aggr.json"))
+    agg_ok = api.verify_aggr(str(wd / "proof_aggr.json"), vks, d[0] / "kzg.srs", device=dev)
+    agg_s = time.perf_counter() - t0
+    bad = json.loads((wd / "proof_aggr.json").read_text())
+    label = sorted(bad["proofs"][1]["evals"])[0]
+    bad["proofs"][1]["evals"][label] = hex(int(bad["proofs"][1]["evals"][label], 16) ^ 1)
+    (wd / "proof_aggr_bad.json").write_text(json.dumps(bad))
+    agg_rejected = not api.verify_aggr(str(wd / "proof_aggr_bad.json"), vks,
+                                       d[0] / "kzg.srs", device=dev)
+    emit({"phase": "families", "model": "mlp_4d_split", "linked": linked,
+          "commitments_in_proofs": carried, "doctored_swap_refused": swap_refused,
+          "doctored_proof_rejected": swap_rejected, "aggregate_proofs": agg["num_proofs"],
+          "aggregate_verified": agg_ok, "aggregate_tamper_rejected": agg_rejected,
+          "aggregate_and_verify_s": agg_s})
+    if not (linked and carried and swap_refused and swap_rejected and agg_ok
+            and agg_rejected):
+        raise AssertionError("the split flow failed its checks")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4, continued: crash and resume the k = 14 prove
 # ---------------------------------------------------------------------------
 
@@ -2041,13 +2330,18 @@ def main() -> int:
         t0 = time.perf_counter()
         mesh_launches = mesh(dev, rng, (srs, pk, asg, baseline), wd / CONV_MODEL / "kzg.srs")
         t_mesh = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the card widths prove once here (the whole script's time);
+        # `tools/run_chip_phases.py families` also proves them warm and profiled
+        family_launches = families(dev, wd / "families", once=True)
+        t_families = time.perf_counter() - t0
     del pk, asg
     t0 = time.perf_counter()
     poseidon(dev, rng)
     emit({"phase": "times", "kernels_s": t_kernels, "k20_kernels_s": t_k20,
           "prove_phase_s": t_prove, "resume_s": t_resume, "check_s": t_check,
           "graph_s": t_graph, "conv2d_mnist_s": t_conv, "evm_s": t_evm, "mesh_s": t_mesh,
-          "poseidon_s": time.perf_counter() - t0})
+          "families_s": t_families, "poseidon_s": time.perf_counter() - t0})
 
     # launches: K1 (each form) to K8 from the graph phase's warm prove; K9
     # from its gen_srs, K9's path since the fused MSM (K7, K8) took over the
@@ -2076,7 +2370,9 @@ def main() -> int:
                  "max_abs_err": k20_rows[name]["max_abs_err"],
                  "checked": k20_rows[name]["checked"], "shape": _shape(k20_rows[name])},
          "evm_launches": {path: evm_launches[path][name] for path in evm_launches},
-         "mesh_launches": mesh_launches[name]}
+         "mesh_launches": mesh_launches[name],
+         "families_launches": {model: family_launches[model].get(name, 0)
+                               for model in family_launches}}
         for name, (src, rep) in KERNEL_META.items()],
         "create_proof_point_dbl_launches": launches["point_dbl"],
         "unfused_msm_point_dbl_launches": unfused_launches["point_dbl"]})

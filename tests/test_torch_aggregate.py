@@ -139,3 +139,26 @@ def test_cli_aggregate_and_verify_aggr_give_the_api_results(tmp_path):
             cli(["verify-aggr", "--aggr-path", str(path), "--vk-paths", *vks,
                  "--srs-path", srs, "--device", "cpu"])
         assert exc.value.code == code
+
+
+def test_split_parts_aggregate_as_in_the_jax_package(tmp_path):
+    """The two mlp_4d split parts' frozen proofs, whose boundary columns are
+    committed (unblinded): both packages write the same aggregate, which
+    `verify_aggr` accepts, and reject it with an inner eval flipped."""
+    from ezkl_tpu import api as ref_api
+
+    parts = ["mlp_4d_split_0", "mlp_4d_split_1"]
+    proofs = [str(FIXTURES / f"graph_{m}" / "proof.json") for m in parts]
+    vks = [str(FIXTURES / f"graph_{m}" / "vk.key") for m in parts]
+    srs = str(FIXTURES / f"graph_{parts[0]}" / "kzg.srs")
+    api.aggregate(proofs, vks, str(tmp_path / "api.json"))
+    ref_api.aggregate(proofs, vks, str(tmp_path / "ref.json"))
+    assert (tmp_path / "api.json").read_bytes() == (tmp_path / "ref.json").read_bytes()
+    assert api.verify_aggr(str(tmp_path / "api.json"), vks, srs, device="cpu")
+    assert ref_api.verify_aggr(str(tmp_path / "api.json"), vks, srs)
+    bad = json.loads((tmp_path / "api.json").read_text())
+    label = sorted(bad["proofs"][1]["evals"])[0]
+    bad["proofs"][1]["evals"][label] = hex(int(bad["proofs"][1]["evals"][label], 16) ^ 1)
+    (tmp_path / "bad.json").write_text(json.dumps(bad))
+    assert not api.verify_aggr(str(tmp_path / "bad.json"), vks, srs, device="cpu")
+    assert not ref_api.verify_aggr(str(tmp_path / "bad.json"), vks, srs)

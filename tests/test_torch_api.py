@@ -4,9 +4,12 @@ CPU, end to end, against the JAX package's files frozen by
 `tests/fixtures/torch_port/graph_<model>/` (the suite never runs the JAX
 prover or keygen).
 
-For each model of `torch_port_graph_models.MODELS` the port runs
-gen_settings -> compile_circuit -> gen_srs -> gen_witness -> setup ->
-prove(seed=1) with `device="cpu"`. Tolerances: `kzg.srs`, `witness.json`
+For each model of `torch_port_graph_models.MODELS` that is marked to prove
+the port runs gen_settings -> compile_circuit -> gen_srs -> gen_witness ->
+setup -> prove(seed=1) with `device="cpu"`; the models whose proofs only
+the card makes (`card_proof`: a CPU key and proof of each would take
+minutes) have their frozen proofs verified here, and the split parts'
+witnesses and commitments are the port's. Tolerances: `kzg.srs`, `witness.json`
 (with the `kzgcommit` model's commitments), `vk.key` and the seeded
 `proof.json` byte-equal to the reference's; the reference's host verifier
 accepts the port's proof and the port's accepts the reference's, and both
@@ -38,14 +41,15 @@ from ezkl_tpu_torch.plonk.prover import Proof
 import torch_port_graph_models as models
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures" / "torch_port"
-MODELS = sorted(models.MODELS)
+MODELS = sorted(m for m in models.MODELS if models.MODELS[m].prove)
+CARD_PROOF = sorted(m for m in models.MODELS if models.MODELS[m].card_proof)
 SEED = 1
 torch.set_num_threads(1)     # small tensors; pytest-xdist runs one worker per core
 
 
 def _inputs(d, name):
     d.mkdir(parents=True, exist_ok=True)
-    onnx, inp = models.MODELS[name][0](onnx_writer)
+    onnx, inp = models.build(name, onnx_writer)
     (d / "network.onnx").write_bytes(onnx)
     (d / "input.json").write_text(json.dumps(inp))
 
@@ -157,7 +161,7 @@ def test_cli_writes_the_api_files(run, tmp_path, monkeypatch):
     _inputs(tmp_path, name)
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("EZKL_TPU_DET_SEED", str(SEED))
-    ra = models.MODELS[name][1]
+    ra = models.MODELS[name].run_args
     lo, hi = ra["lookup_range"]
     dev = ["--device", "cpu"]
     cli(["gen-settings", "-M", "network.onnx", "--input-scale", str(ra["input_scale"]),
@@ -231,3 +235,118 @@ def test_calibrate_settings_equals_the_reference(tmp_path):
     api.calibrate_settings(port / "network.onnx", port / "input.json",
                            port / "settings.json", scales=[2, 3], device="cpu")
     assert (port / "settings.json").read_bytes() == (ref / "settings.json").read_bytes()
+
+
+@pytest.mark.parametrize("name", CARD_PROOF)
+def test_each_verifier_accepts_the_frozen_card_proof_and_rejects_the_tampered(name, tmp_path):
+    """lstm_bidi (k = 11) and the two split parts (committed boundary
+    columns): the JAX package's
+    seed=1 proof, which the card reproduces byte for byte (`chip_smoke.py`'s
+    families phase), passes both verifiers; with its first eval's low bit
+    flipped it passes neither."""
+    fx = FIXTURES / f"graph_{name}"
+    g2 = srsmod.load(fx / "kzg.srs", "cpu")
+    proof = (fx / "proof.json").read_text()
+    ref_vk = ref_serde.load_vk(fx / "vk.key")
+    assert ref_verifier.verify(ref_vk, g2.g2, g2.s_g2, ref_prover.Proof.from_json(proof))
+    assert not ref_verifier.verify(ref_vk, g2.g2, g2.s_g2,
+                                   ref_prover.Proof.from_json(_tampered(proof)))
+    assert api.verify(fx / "proof.json", fx / "vk.key", fx / "kzg.srs", device="cpu")
+    (tmp_path / "proof_bad.json").write_text(_tampered(proof))
+    assert not api.verify(tmp_path / "proof_bad.json", fx / "vk.key", fx / "kzg.srs",
+                          device="cpu")
+
+
+SPLIT = ["mlp_4d_split_0", "mlp_4d_split_1"]
+
+
+@pytest.fixture(scope="module")
+def split(tmp_path_factory):
+    """The port's witnesses of the two split parts (part 1's input from
+    part 0's witness), with the frozen SRS: name -> directory."""
+    base, out = tmp_path_factory.mktemp("split"), {}
+    for name in SPLIT:
+        d = base / name
+        d.mkdir()
+        onnx, inp = models.build(name, onnx_writer, lambda other: out[other])
+        (d / "network.onnx").write_bytes(onnx)
+        (d / "input.json").write_text(json.dumps(inp))
+        api.gen_settings(d / "network.onnx", d / "settings.json", models.run_args(RunArgs, name))
+        api.compile_circuit(d / "network.onnx", d / "settings.json", d / "model.compiled")
+        api.gen_witness(d / "model.compiled", d / "input.json", d / "witness.json",
+                        srs_path=FIXTURES / f"graph_{name}" / "kzg.srs", device="cpu")
+        out[name] = d
+    return out
+
+
+def _commitments(witness_path):
+    pc = json.loads(pathlib.Path(witness_path).read_text())["processed_commitments"]
+    return pc["advice_indices"], [[int(v, 16) for v in c] for c in pc["polycommit"]]
+
+
+def test_split_proofs_link_through_their_boundary_commitment(split):
+    """`tests/test_proof_split.py`: part 0's output commitment is part 1's
+    input commitment, and each seeded proof carries its own in
+    `advice[idx]`."""
+    (idx0, c_out), (idx1, c_in) = (_commitments(split[name] / "witness.json")
+                                   for name in SPLIT)
+    assert len(c_out) == len(c_in) == 1 and c_out == c_in
+    for name, idx, comm in ((SPLIT[0], idx0, c_out), (SPLIT[1], idx1, c_in)):
+        assert (split[name] / "witness.json").read_bytes() == \
+            (FIXTURES / f"graph_{name}" / "witness.json").read_bytes()
+        pj = json.loads((FIXTURES / f"graph_{name}" / "proof.json").read_text())
+        assert [[int(v, 16) for v in pj["advice"][i]] for i in idx] == comm
+
+
+def test_split_link_breaks_on_a_boundary_one_step_off(split, tmp_path):
+    """Part 1's input moved by one quantisation step (2^-2) commits to
+    another point."""
+    d1 = split[SPLIT[1]]
+    inp = json.loads((d1 / "input.json").read_text())
+    inp["input_data"][0][0] += 0.25
+    (tmp_path / "input.json").write_text(json.dumps(inp))
+    api.gen_witness(d1 / "model.compiled", tmp_path / "input.json", tmp_path / "witness.json",
+                    srs_path=FIXTURES / f"graph_{SPLIT[1]}" / "kzg.srs", device="cpu")
+    assert _commitments(tmp_path / "witness.json")[1] != _commitments(d1 / "witness.json")[1]
+
+
+@pytest.mark.parametrize("name", SPLIT)
+def test_swap_of_a_doctored_commitment_is_refused_by_both_verifiers(split, tmp_path, name):
+    """`tests/test_visibility.py:96-107`, on the seeded proof: the honest
+    swap is a no-op; a witness whose commitment is 7G swaps in,
+    `swap_proof_commitments` returns False, and neither package's verifier
+    accepts the proof."""
+    fx = FIXTURES / f"graph_{name}"
+    shutil.copy(fx / "proof.json", tmp_path / "proof.json")
+    assert api.swap_proof_commitments(tmp_path / "proof.json", split[name] / "witness.json")
+    assert (Proof.from_json((tmp_path / "proof.json").read_text())
+            == Proof.from_json((fx / "proof.json").read_text()))
+    assert api.verify(tmp_path / "proof.json", fx / "vk.key", fx / "kzg.srs", device="cpu")
+    wit = json.loads((split[name] / "witness.json").read_text())
+    from ezkl_tpu_torch.fieldmath import hostcurve
+    x, y = hostcurve.g1_mul(hostcurve.G1, 7)
+    wit["processed_commitments"]["polycommit"][0] = [hex(x), hex(y)]
+    (tmp_path / "witness.json").write_text(json.dumps(wit))
+    assert not api.swap_proof_commitments(tmp_path / "proof.json", tmp_path / "witness.json")
+    assert not api.verify(tmp_path / "proof.json", fx / "vk.key", fx / "kzg.srs", device="cpu")
+    g2 = srsmod.load(fx / "kzg.srs", "cpu")
+    assert not ref_verifier.verify(ref_serde.load_vk(fx / "vk.key"), g2.g2, g2.s_g2,
+                                   ref_prover.Proof.from_json(
+                                       (tmp_path / "proof.json").read_text()))
+
+
+def test_a_gathered_value_off_its_table_stops_the_prover_in_phase_3(run):
+    """gather_dyn: with one gathered value moved by one, the prover's
+    multiplicity count over the advice table (phase 3) raises, as the JAX
+    package's does."""
+    from ezkl_tpu_torch.plonk import prover
+    d = run("gather_dyn")
+    gc = api.load_compiled(d / "model.compiled")
+    arrays = api._reshape_for(gc, api._load_input(d / "input.json", gc.model.input_scales()))
+    cfg, ctx, _ = gc.forward(arrays)
+    asg = ctx.finalize()
+    row, col = models.gathered_cell(asg, cfg)
+    asg.set_ints_at(col, [row], [asg.get_int(col, row) + 1])
+    pk = serde.load_pk(d / "pk.key", "cpu")
+    with pytest.raises(ValueError, match=r"lookup 'dyn_gather_\d+': 1 input values not in table"):
+        prover.create_proof(pk, srsmod.load(d / "kzg.srs", "cpu"), asg, seed=SEED)

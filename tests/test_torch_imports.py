@@ -3,7 +3,9 @@
 * neither the package (its EVM `evm/` and its mesh `parallel/` included)
   nor its card scripts (`chip_smoke.py`,
   `tools/profile_torch_prove.py`, `tools/bench_msm_kernels.py`,
-  `tools/pair_k1_k9.py`, `tools/run_chip_phases.py`) import
+  `tools/pair_k1_k9.py`, `tools/run_chip_phases.py`), nor the model
+  constructors that `chip_smoke.py`'s families phase imports
+  (`tests/torch_port_graph_models.py`), import
   `jax` or the JAX package `ezkl_tpu` (checked on the source with `ast`,
   and for the API, the CLI, the EVM and the mesh also in a fresh
   interpreter);
@@ -48,7 +50,7 @@ def _sources():
     files = sorted((ROOT / "ezkl_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_prove.py",
         ROOT / "tools" / "bench_msm_kernels.py", ROOT / "tools" / "pair_k1_k9.py",
-        ROOT / "tools" / "run_chip_phases.py"]
+        ROOT / "tools" / "run_chip_phases.py", ROOT / "tests" / "torch_port_graph_models.py"]
     assert len(files) > 10
     return files
 
@@ -69,6 +71,19 @@ def test_port_never_imports_jax_or_the_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_chip_smoke_defines_each_top_level_name_once():
+    """`chip_smoke.py` is one long module of phases: a helper that a later
+    phase defines again under an earlier one's name replaces it for every
+    phase."""
+    import collections
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = collections.Counter(
+        [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+        + [t.id for n in tree.body if isinstance(n, ast.Assign) for t in n.targets
+           if isinstance(t, ast.Name)])
+    assert [name for name, count in names.items() if count > 1] == []
+
+
 def test_scan_covers_the_evm_and_the_mesh():
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for sub in ("evm/__init__.py", "evm/vm.py", "evm/solidity.py", "evm/bytecode.py",
@@ -85,6 +100,27 @@ def test_api_and_cli_import_neither_jax_nor_the_jax_package():
     code = ("import sys, ezkl_tpu_torch.api, ezkl_tpu_torch.__main__, "
             "ezkl_tpu_torch.evm.vm, ezkl_tpu_torch.evm.bytecode, ezkl_tpu_torch.parallel; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ezkl_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_families_phase_imports_neither_jax_nor_the_jax_package():
+    """`chip_smoke.py`'s families phase loads the model constructors of
+    `tests/torch_port_graph_models.py` and builds every model with the
+    port's writer, each card model's input and float64 forward too, in a
+    fresh interpreter: no `jax` or `ezkl_tpu` module is left behind."""
+    import subprocess
+    import sys
+    code = ("import sys, chip_smoke\n"
+            "from ezkl_tpu_torch.graph import onnx_writer as w\n"
+            "m = chip_smoke.graph_models()\n"
+            "for name in list(m.MODELS) + list(m.CARD_MODELS):\n"
+            "    m.MODELS.get(name, m.CARD_MODELS.get(name)).build(w)\n"
+            "for name in chip_smoke.FAMILY_CARD:\n"
+            "    m.FLOAT_FORWARDS[name]()\n"
+            "print(sorted(x for x in sys.modules if x.split('.')[0] in ('jax', 'ezkl_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr

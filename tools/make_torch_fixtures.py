@@ -19,7 +19,9 @@ mul + lookup + copy circuit and the shuffle circuit) and writes, under
                      the settled k), witness.json, vk.key, proof.json
                      (`prove(seed=1)`), and mock.json (the MockProver's
                      failures on the honest witness and on one with a cell
-                     corrupted)
+                     corrupted); models that no test proves stop at
+                     settings.json, model.compiled, witness.json (kzg.srs
+                     where a column is committed) and mock.json
 
 The port's tests (`tests/test_torch_prove.py`, `tests/test_torch_fused_msm.py`,
 `tests/test_torch_graph.py`, `tests/test_torch_api.py`) compare against these
@@ -33,9 +35,10 @@ on 8 cores):
 
     JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--part proofs|fused|graph]
 
-The graph part runs one subprocess per model, all at once: each compiles
-the JAX package's gen_srs, keygen and prover for its shapes (about 4, 35
-and 40 minutes on 8 shared cores; 87 minutes in all, 5-7 GB each).
+The graph part runs one subprocess per model, all at once unless `--jobs`
+says otherwise (`--models a,b` for some of them): each compiles the JAX
+package's gen_srs, keygen and prover for its shapes (about 4, 35 and 40
+minutes on 8 shared cores; 87 minutes in all, 5-7 GB each).
 """
 
 from __future__ import annotations
@@ -263,7 +266,10 @@ def _failures(fails):
 
 
 def _graph_child(name):
-    """Runs in a subprocess: the JAX package's file pipeline on one model."""
+    """Runs in a subprocess: the JAX package's file pipeline on one model.
+    A model that neither the CPU tests nor the card prove against the
+    fixtures stops after the mock; a model `after` another waits for that
+    one's witness.json, its input."""
     import jax
     import ezkl_tpu
     from ezkl_tpu import api
@@ -279,8 +285,14 @@ def _graph_child(name):
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     d = OUT / f"graph_{name}"
     d.mkdir(parents=True, exist_ok=True)
-    build, _ = graph_models.MODELS[name]
-    onnx, inp = build(onnx_writer)
+    model = graph_models.MODELS[name]
+    if model.after:                          # written early in that model's job
+        deadline = time.monotonic() + 4 * 3600
+        while not (OUT / f"graph_{model.after}" / "witness.json").exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no witness.json of {model.after}")
+            time.sleep(5)
+    onnx, inp = graph_models.build(name, onnx_writer, lambda other: OUT / f"graph_{other}")
     (d / "network.onnx").write_bytes(onnx)
     (d / "input.json").write_text(json.dumps(inp))
     times = {}
@@ -295,12 +307,17 @@ def _graph_child(name):
     f = {k: str(d / k) for k in ("network.onnx", "input.json", "settings.json",
                                  "model.compiled", "kzg.srs", "witness.json",
                                  "vk.key", "pk.key", "proof.json")}
-    st = phase("gen_settings", lambda: api.gen_settings(
-        f["network.onnx"], f["settings.json"], graph_models.run_args(RunArgs, name)))
+    ra = graph_models.run_args(RunArgs, name)
+    st = phase("gen_settings", lambda: api.gen_settings(f["network.onnx"], f["settings.json"], ra))
     api.compile_circuit(f["network.onnx"], f["settings.json"], f["model.compiled"])
-    phase("gen_srs", lambda: api.gen_srs(f["kzg.srs"], st.run_args.logrows))
+    keyed = model.prove or model.card_proof
+    committed = "kzgcommit" in (ra.input_visibility, ra.output_visibility,
+                                ra.param_visibility)
+    if keyed or committed:
+        phase("gen_srs", lambda: api.gen_srs(f["kzg.srs"], st.run_args.logrows))
     phase("gen_witness", lambda: api.gen_witness(
-        f["model.compiled"], f["input.json"], f["witness.json"], srs_path=f["kzg.srs"]))
+        f["model.compiled"], f["input.json"], f["witness.json"],
+        srs_path=f["kzg.srs"] if keyed or committed else None))
 
     gc = api.load_compiled(f["model.compiled"])
     arrays = api._reshape_for(gc, api._load_input(f["input.json"], gc.model.input_scales()))
@@ -321,6 +338,9 @@ def _graph_child(name):
     (d / "mock.json").write_text(json.dumps({
         "honest": _failures(honest), "column": CORRUPT_COLUMN, "row": row,
         "corrupted": _failures(bad)}, indent=1))
+    if not keyed:
+        print(f"{name}: k={st.run_args.logrows} {json.dumps(times)}", flush=True)
+        return
 
     phase("setup", lambda: api.setup(f["model.compiled"], f["input.json"], f["kzg.srs"],
                                      f["vk.key"], f["pk.key"]))
@@ -332,14 +352,29 @@ def _graph_child(name):
     print(f"{name}: k={st.run_args.logrows} {json.dumps(times)}", flush=True)
 
 
-def make_graph():
-    """The graph part: one subprocess per model, all at once."""
+def make_graph(names=None, jobs=None):
+    """The graph part: one subprocess per model (`names`, default all of
+    MODELS), at most `jobs` at once (default all), in the order given."""
     OUT.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, JAX_PLATFORMS="cpu")
-    procs = {name: subprocess.Popen([sys.executable, __file__, "--graph-child", name],
-                                    env=env, cwd=str(ROOT))
-             for name in graph_models.MODELS}
-    failed = [name for name, p in procs.items() if p.wait()]
+    pending = list(names or graph_models.MODELS)
+    for name in pending:                    # no stale input for a later part
+        witness = OUT / f"graph_{name}" / "witness.json"
+        if witness.exists():
+            witness.unlink()
+    jobs = jobs or len(pending)
+    running, failed = {}, []
+    while pending or running:
+        while pending and len(running) < jobs:
+            name = pending.pop(0)
+            running[name] = subprocess.Popen(
+                [sys.executable, __file__, "--graph-child", name], env=env, cwd=str(ROOT))
+        time.sleep(2)
+        for name, p in list(running.items()):
+            if p.poll() is not None:
+                del running[name]
+                if p.returncode:
+                    failed.append(name)
     if failed:
         raise RuntimeError(f"graph fixture jobs failed: {failed}")
 
@@ -349,6 +384,10 @@ def main():
     ap.add_argument("--part", choices=("all", "proofs", "fused", "graph"), default="all")
     ap.add_argument("--fused-child", help=argparse.SUPPRESS)
     ap.add_argument("--graph-child", help=argparse.SUPPRESS)
+    ap.add_argument("--models", help="graph part: comma-separated names of "
+                    "torch_port_graph_models.MODELS (default: all), run in this order")
+    ap.add_argument("--jobs", type=int, help="graph part: subprocesses at once "
+                    "(default: one per model)")
     args = ap.parse_args()
     t0 = time.perf_counter()
     if args.fused_child:
@@ -360,7 +399,7 @@ def main():
     if args.part in ("all", "fused"):
         make_fused()
     if args.part in ("all", "graph"):
-        make_graph()
+        make_graph(args.models.split(",") if args.models else None, args.jobs)
     print(f"done in {time.perf_counter() - t0:.0f} s", flush=True)
 
 

@@ -11,7 +11,9 @@ and resume of the stand-in's prove; runs `prove` first), `check`, `graph`
 (mlp_4d), `conv` (conv2d_mnist at k = 20 and the aggregate; runs `graph`
 first), `evm` (the EVM verifier on conv2d_mnist and mlp_4d; runs `graph`
 and `conv` first), `mesh` (the four-shard mesh; runs `prove` first, and
-reads the k = 20 SRS of `conv` when that ran, else makes it), `poseidon`.
+reads the k = 20 SRS of `conv` when that ran, else makes it), `poseidon`,
+`families` (the recurrent, attention, dynamic-gather and committed-I/O
+circuits, the LSTM at k = 17 and the attention block at k = 18).
 Exits non-zero if a phase fails.
 """
 
@@ -76,6 +78,8 @@ def main(names) -> int:
                         srs20 if srs20.exists() else None)
             elif name == "poseidon":
                 cs.poseidon(dev, rng)
+            elif name == "families":
+                cs.families(dev, wd / "families")
             else:
                 raise SystemExit(f"unknown phase {name!r}")
             seconds[name] = time.perf_counter() - t0
