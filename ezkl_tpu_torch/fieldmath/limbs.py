@@ -53,14 +53,11 @@ def device_of(device=None) -> torch.device:
 # host <-> device conversion
 # ---------------------------------------------------------------------------
 
-def _ints_to_words(flat: np.ndarray) -> np.ndarray:
-    """Object array of ints in [0, 2^256) -> (8, n) uint32 words."""
-    out = np.empty((NWORDS, flat.size), np.uint32)
-    v = flat
-    for i in range(NWORDS):
-        out[i] = (v & M32).astype(np.uint64)
-        v = v >> WORD_BITS
-    return out
+def _ints_to_words(ints: list[int], p: int) -> np.ndarray:
+    """Ints -> (8, n) uint32 words of their residues mod p, from one run of
+    32-byte little-endian forms."""
+    buf = b"".join([(v % p).to_bytes(32, "little") for v in ints])
+    return np.frombuffer(buf, np.uint32).reshape(len(ints), NWORDS).T.copy()
 
 
 def _words_to_ints(a: np.ndarray) -> np.ndarray:
@@ -85,12 +82,13 @@ def to_device(words: np.ndarray, device=None) -> torch.Tensor:
 
 
 def encode(spec: FieldSpec, xs, mont: bool = True) -> np.ndarray:
-    """Python ints (any nested shape) -> host (8, *shape) uint32 words."""
+    """Ints of any sign and size (any nested shape) -> host (8, *shape)
+    uint32 words of their residues mod p (in Montgomery form if `mont`)."""
     arr = np.asarray(xs, dtype=object)
-    flat = arr.reshape(-1) % spec.modulus
+    ints = list(map(int, arr.reshape(-1).tolist()))
     if mont:
-        flat = (flat * spec.r) % spec.modulus
-    return _ints_to_words(flat).reshape((NWORDS,) + arr.shape)
+        ints = [v * spec.r for v in ints]
+    return _ints_to_words(ints, spec.modulus).reshape((NWORDS,) + arr.shape)
 
 
 def decode(spec: FieldSpec, limbs, mont: bool = True) -> np.ndarray:
@@ -102,11 +100,40 @@ def decode(spec: FieldSpec, limbs, mont: bool = True) -> np.ndarray:
     return ((v * rinv) % spec.modulus).reshape(batch)
 
 
-def encode_i64(spec: FieldSpec, xs) -> np.ndarray:
+@functools.lru_cache(maxsize=None)
+def _i64_words(spec: FieldSpec):
+    """p mod 2^64, and the (6, 2) words 2-7 of p - |x| for a negative int64
+    x: column 0 for |x| <= p mod 2^64, column 1 (one borrowed) above it."""
+    hi = spec.modulus >> 64
+    return np.uint64(spec.modulus % (1 << 64)), np.array(
+        [[(h >> (WORD_BITS * i)) & M32 for h in (hi, hi - 1)]
+         for i in range(NWORDS - 2)], np.uint32)
+
+
+def encode_i64(spec: FieldSpec, xs, out=None) -> np.ndarray:
     """int64 ndarray -> host (8, *shape) RAW (non-Montgomery) words;
-    negative values map to p - |x|."""
+    negative values map to p - |x|. Written into `out`, an (8, *shape)
+    uint32 array or view, when one is given.
+
+    No Python ints: an x >= 0 is its own two low words, the rest zero. For
+    x < 0, |x| <= 2^63 < p, and p - |x| = (p mod 2^64) + x mod 2^64 in the
+    low 64 bits, over p's words 2-7 less the borrow that |x| > p mod 2^64
+    takes from them; that borrow is there exactly when the 64-bit sum does
+    not wrap, i.e. comes out at or above p mod 2^64."""
     xs = np.asarray(xs, dtype=np.int64)
-    return encode(spec, xs.astype(object), mont=False)
+    if out is None:
+        out = np.empty((NWORDS,) + xs.shape, np.uint32)
+    out[2:] = 0
+    neg = xs < 0
+    lo = xs.view(np.uint64)
+    if neg.any():
+        p_lo, hi = _i64_words(spec)
+        lo = lo.copy()
+        lo[neg] += p_lo
+        out[2:, neg] = hi[:, (lo[neg] >= p_lo).view(np.uint8)]
+    out[0] = lo & M32
+    out[1] = lo >> WORD_BITS
+    return out
 
 
 def pack_rows(a) -> np.ndarray:

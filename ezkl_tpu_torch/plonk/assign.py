@@ -61,18 +61,16 @@ class Assignment:
 
     def set_ints(self, col: Column, row0: int, values):
         """Assign Python ints (any magnitude) starting at row0."""
-        arr = limbs.encode(FR, [v % FR.modulus for v in values], mont=False)
+        arr = limbs.encode(FR, values, mont=False)
         self._store(col)[col.index][:, row0:row0 + arr.shape[1]] = arr
 
     def set_i64(self, col: Column, row0: int, values: np.ndarray):
-        """Assign an int64 ndarray (fast path)."""
-        arr = limbs.encode_i64(FR, values)
-        self._store(col)[col.index][:, row0:row0 + arr.shape[-1]] = arr
+        """Assign an int64 ndarray (fast path), encoded in place."""
+        limbs.encode_i64(FR, values, out=self._store(col)[col.index][:, row0:row0 + len(values)])
 
     def set_ints_at(self, col: Column, rows: list[int], values):
         """Assign Python ints at scattered rows."""
-        arr = limbs.encode(FR, [v % FR.modulus for v in values], mont=False)
-        self._store(col)[col.index][:, rows] = arr
+        self._store(col)[col.index][:, rows] = limbs.encode(FR, values, mont=False)
 
     def apply_phase1(self, challenges: dict[int, int]):
         """Fill phase-1 advice columns via the witness callback."""

@@ -143,6 +143,89 @@ def test_layout_round_trip_and_i64_encoding():
     assert len(set(rows.tolist())) == len(vals)
 
 
+def words_oracle(p: int, values, factor: int = 1) -> np.ndarray:
+    """The object-int encoding: each int times `factor`, reduced mod p, cut
+    into eight little-endian 32-bit words by shift and mask."""
+    arr = np.asarray(values, dtype=object)
+    v = np.array([int(x) * factor % p for x in arr.reshape(-1).tolist()] + [None],
+                 dtype=object)[:-1]
+    out = np.empty((8, v.size), np.uint32)
+    for i in range(8):
+        out[i] = (v >> (32 * i)) & 0xFFFFFFFF
+    return out.reshape((8,) + arr.shape)
+
+
+def _i64_values(p, seed):
+    """int64 edges (the sign, the word boundaries, |x| at and around
+    p mod 2^64, past which p - |x| borrows from word 2) and random int64s."""
+    lo64, i64 = p % (1 << 64), np.iinfo(np.int64)
+    edge = [0, 1, -1, i64.min, i64.max, 1 << 32, -(1 << 32), (1 << 32) - 1, 1 - (1 << 32),
+            i64.min + 1, -lo64, -lo64 - 1, 1 - lo64, 1 << 62, -(1 << 62)]
+    rng = np.random.default_rng(seed)
+    rand = rng.integers(i64.min, i64.max, size=64 - len(edge), endpoint=True, dtype=np.int64)
+    return np.array(edge + rand.tolist(), np.int64)
+
+
+I64_SHAPES = {
+    "1d": lambda v: v,
+    "2d": lambda v: v.reshape(8, 8),
+    "strided": lambda v: v.reshape(4, 16)[:, ::2],
+    "reversed": lambda v: v[::-1],
+}
+
+
+@pytest.mark.parametrize("field", sorted(SPECS))
+@pytest.mark.parametrize("shape", sorted(I64_SHAPES) + ["out"])
+def test_encode_i64_bit_exact(field, shape):
+    """encode_i64's numpy words equal the object-int encoding of int(x) mod p
+    and the JAX package's encode_i64, for every shape of input; `out` writes
+    them into a strided slice of a larger array and nothing else."""
+    spec, rspec = SPECS[field]
+    v = _i64_values(spec.modulus, seed=len(shape))
+    xs = I64_SHAPES.get(shape, lambda v: v)(v)
+    want = words_oracle(spec.modulus, xs)
+    np.testing.assert_array_equal(convert.words_from_ref(ref.encode_i64(rspec, xs)), want)
+    if shape == "out":
+        buf = np.full((8, 2, xs.size + 5), 0xDEADBEEF, np.uint32)
+        got = limbs.encode_i64(spec, xs, out=buf[:, 1, 3:3 + xs.size])
+        np.testing.assert_array_equal(got, want)
+        assert np.shares_memory(got, buf)
+        buf[:, 1, 3:3 + xs.size] = 0xDEADBEEF
+        assert (buf == 0xDEADBEEF).all()
+    else:
+        got = limbs.encode_i64(spec, xs)
+        assert got.dtype == np.uint32 and got.shape == (8,) + xs.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def _int_cases(p):
+    edge = [0, 1, p - 1, p, 2 * p + 5, -1, -p, (1 << 256) - 1, -(1 << 300), p * p + 3]
+    return {
+        "flat": (edge, False),
+        "mont": (edge, True),
+        "nested": ([edge[:5], edge[5:]], False),
+        "object_array": (np.array(edge, dtype=object).reshape(2, 5)[:, ::-1], True),
+        "numpy_ints": (np.array([-3, 0, 5, np.iinfo(np.int64).min], np.int64), False),
+        "one": ([p - 1], True),
+        "empty": ([], False),
+    }
+
+
+@pytest.mark.parametrize("field", sorted(SPECS))
+@pytest.mark.parametrize("case", sorted(_int_cases(7)))
+def test_encode_ints_bit_exact(field, case):
+    """encode's words from Python ints of any sign and size equal the
+    object-int encoding of x mod p (x * R mod p with `mont`) and the JAX
+    package's encode, in the input's nested shape."""
+    spec, rspec = SPECS[field]
+    xs, mont = _int_cases(spec.modulus)[case]
+    got = limbs.encode(spec, xs, mont=mont)
+    want = words_oracle(spec.modulus, xs, spec.r if mont else 1)
+    assert got.dtype == np.uint32 and got.flags.writeable
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(convert.words_from_ref(ref.encode(rspec, xs, mont=mont)), want)
+
+
 @pytest.mark.parametrize("a_shape, b_shape, representable", [
     ((8, 3, 16), (8, 1, 1), True),           # a constant
     ((8, 3, 16), (8, 1, 16), True),          # one row over a batch (coset powers)

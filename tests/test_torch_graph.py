@@ -28,9 +28,11 @@ from ezkl_tpu_torch import api, convert
 from ezkl_tpu_torch.graph import onnx_writer, ops
 from ezkl_tpu_torch.graph.run_args import RunArgs
 from ezkl_tpu_torch.plonk import mock
-from ezkl_tpu_torch.plonk.cs import ADVICE, Column
+from ezkl_tpu_torch.fieldmath import limbs
+from ezkl_tpu_torch.plonk.cs import ADVICE, FIXED, Column
 
 import torch_port_graph_models as models
+from test_torch_field import words_oracle
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
@@ -154,6 +156,38 @@ def test_finalized_assignment_equals_the_reference(files, name):
         np.testing.assert_array_equal(ra, qa)
         np.testing.assert_array_equal(rb, qb)
     assert sorted(cfg.tables) == sorted(ref_cfg.tables)
+
+
+@pytest.mark.parametrize("name", ["mlp_4d", "mlp_4d_hashed", "gemm_freivalds"])
+def test_finalized_words_are_the_object_int_encoding(files, name):
+    """`LayoutCtx.finalize` writes each fixed and advice column as the
+    object-int encoding of the layout's int64 column with its full-field
+    cells laid over it; the instance reaches the device as the encoding of
+    its ints; `apply_phase1` writes the encoding of the Freivalds columns."""
+    gc = api.load_compiled(files(name)[1] / "model.compiled")
+    arrays = api._reshape_for(gc, api._load_input(files(name)[1] / "input.json",
+                                                  gc.model.input_scales()))
+    cfg, ctx, _ = gc.forward(arrays)
+    asg = ctx.finalize()
+    p = mock.FR.modulus
+    want = {FIXED: np.zeros_like(asg.fixed), ADVICE: np.zeros_like(asg.advice)}
+    for (kind, idx), arr in ctx._cols.items():
+        want[kind][idx] = words_oracle(p, arr)
+        for row, v in ctx._overlay.get((kind, idx), {}).items():
+            want[kind][idx][:, row] = words_oracle(p, [v])[:, 0]
+    if asg.phase_callback is not None:
+        challenges = {i: pow(gc.MOCK_CHALLENGE, i + 1, p) for i in range(cfg.cs.num_challenges)}
+        for idx, values in asg.phase_callback(challenges).items():
+            want[ADVICE][idx] = words_oracle(p, values)
+        asg.apply_phase1(challenges)
+    np.testing.assert_array_equal(asg.fixed, want[FIXED])
+    np.testing.assert_array_equal(asg.advice, want[ADVICE])
+    inst = np.zeros((cfg.cs.num_instance, 8, asg.n), np.uint32)
+    for i, vals in enumerate(asg.instance):
+        inst[i][:, :len(vals)] = words_oracle(p, vals, mock.FR.r)
+    np.testing.assert_array_equal(limbs.host_words(asg.instance_device("cpu")), inst)
+    assert any(asg.instance) and (name != "mlp_4d_hashed" or ctx._overlay)
+    assert (asg.phase_callback is not None) == (name == "gemm_freivalds")
 
 
 def _failures(fails):
