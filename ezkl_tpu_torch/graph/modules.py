@@ -145,6 +145,11 @@ class FreivaldsModule:
     Columns: f_v (phase-0 staging of B/C values), cp/acc/f_u/acc2 (phase-1:
     challenge powers, RLC accumulators, staged u values, final dot accs).
     Row cost: K*N + M*N + M*K per matmul instead of M*N*K.
+
+    Counters of the circuit laid so far: `rlc_rows`, the rows of the RLC
+    runs over B and C (K*N + M*N a matmul, K*N once for a shared B), and
+    `dot_rows`, the rows of the final dots (M*K); the phase-1 witness
+    (`make_callback`) computes a running sum on each.
     """
 
     def __init__(self, cfg: BaseConfig):
@@ -178,6 +183,8 @@ class FreivaldsModule:
         cs.create_gate("einsum_dot2_run", q["dot2_run"] * (v2 - v2_p - vv * vu))
         # deferred phase-1 witness jobs: (kind, rows..., values...)
         self.jobs: list = []
+        self.rlc_rows = 0
+        self.dot_rows = 0
 
     # -- layout -------------------------------------------------------------
 
@@ -199,6 +206,7 @@ class FreivaldsModule:
         ctx._arr(self.sel["rlc_init"])[rows[init_mask]] = 1
         ctx._arr(self.sel["rlc_run"])[rows[~init_mask]] = 1
         self.jobs.append(("rlc", r0, runs, run_len, vals.copy()))
+        self.rlc_rows += L
         return r0 + (np.arange(runs) + 1) * run_len - 1  # final acc rows
 
     def matmul(self, ctx: LayoutCtx, a, b, out_ints: np.ndarray):
@@ -265,6 +273,7 @@ class FreivaldsModule:
             ctx._arr(self.sel[s_init])[rows[init_mask]] = 1
             ctx._arr(self.sel[s_run])[rows[~init_mask]] = 1
         self.jobs.append(("rlc", c_r0, Bt * M, N, c_flat.copy()))
+        self.rlc_rows += L
         v_rows = c_r0 + (np.arange(Bt * M) + 1) * N - 1
 
         # final dots: rows (t, i, k): f_v = A[t,i,k], f_u = u_{t,k}
@@ -289,6 +298,7 @@ class FreivaldsModule:
         ctx._arr(self.sel["dot2_run"])[rows[~init_mask]] = 1
         self.jobs.append(("dot2", d_r0, Bt * M, K, a_flat.copy(),
                           u_rows[u_src].reshape(Bt * M, K).copy()))
+        self.dot_rows += Bt * M * K
         dot_final = d_r0 + (np.arange(Bt * M) + 1) * K - 1
         # equality: acc2 final == v_{t,i}
         ctx.copy_rows(self.acc2, dot_final, self.acc, v_rows)

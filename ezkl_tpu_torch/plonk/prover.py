@@ -63,6 +63,10 @@ _PHASE = None          # (name, start time, profiler range) of the running phase
 # together (8 columns of 2^23 at k = 20: 2 GiB a copy; every column of a
 # k <= 14 prove in one group)
 EXT_GROUP_ELEMENTS = 1 << 26
+# polynomial elements phase 6 evaluates at a point together (its transients
+# are several copies of the stack: one point's ~90 columns at k = 21 in one
+# stack did not fit one H100; every column of a k <= 19 prove in one group)
+EVAL_GROUP_ELEMENTS = 1 << 26
 
 
 def _span(msg: str, device=None):
@@ -460,9 +464,9 @@ class ProverKernels:
         return self.stage_combine(acc)
 
     # ---- stage D: batched evaluation at an opening point -----------------
-    def stage_eval(self, coeff_stack, z_mont):
-        """coeff_stack (Q, 8, n) all at the SAME point -> (Q, 8)."""
-        pw = limbs.powers_dynamic(FR, z_mont, self.n)
+    def stage_eval(self, coeff_stack, pw):
+        """coeff_stack (Q, 8, n) all at the SAME point z, pw (8, n) its
+        powers z^i -> (Q, 8)."""
         prod = limbs.mont_mul(FR, coeff_stack.movedim(0, 1), pw[:, None, :])
         return kzg._sum_last(prod).movedim(0, 1)
 
@@ -665,11 +669,15 @@ def create_proof(pk: ProvingKey, srs: SRS, asg: Assignment,
         challenges = [tr.challenge() for _ in range(cs.num_challenges)]
         ch_dev = [limbs.const(FR, v, device=dev) for v in challenges]
         if p1_cols:
+            # the second-phase witness (the Freivalds arguments' running
+            # sums) from the challenges, and its upload
+            _span("phase2b: freivalds witness", dev)
             asg.apply_phase1({i: v for i, v in enumerate(challenges)})
             refreshed = blind_tail(asg.device_columns(ADVICE, dev), unbl)
             # keep the already-committed phase-0 blinding rows byte-identical
             keep = torch.tensor([phases[i] == 0 for i in range(cs.num_advice)], device=dev)
             advice_l = torch.where(keep[:, None, None], advice_l, refreshed)
+            _span("phase2c: phase-1 commitments", dev)
             for i, c in zip(p1_cols, kzg.commit_many(srs, advice_l[p1_cols])):
                 advice_comms[i] = c
                 tr.common_point(c)
@@ -832,18 +840,14 @@ def create_proof(pk: ProvingKey, srs: SRS, asg: Assignment,
     for i, piece in enumerate(h_pieces):
         eval_jobs[x].append((f"h{i}@0", piece))
 
-    for point, jobs in eval_jobs.items():
-        stack = torch.stack([c for _, c in jobs])
-        # pad the poly count to a power of two, as the reference does
-        Q = stack.shape[0]
-        Qp = 1 << (Q - 1).bit_length()
-        if Qp != Q:
-            stack = torch.cat([stack, torch.zeros((Qp - Q,) + stack.shape[1:],
-                                                  dtype=stack.dtype, device=dev)])
-        vals = kern.stage_eval(stack, limbs.const(FR, point, device=dev))[:Q]
-        decoded = limbs.decode(FR, vals.movedim(0, 1))
-        for (label, _), v in zip(jobs, decoded):
-            evals[label] = int(v)
+    group = max(1, EVAL_GROUP_ELEMENTS // n)
+    for point, all_jobs in eval_jobs.items():
+        pw = limbs.powers_dynamic(FR, limbs.const(FR, point, device=dev), n)
+        for lo in range(0, len(all_jobs), group):
+            jobs = all_jobs[lo:lo + group]
+            vals = kern.stage_eval(torch.stack([c for _, c in jobs]), pw)
+            for (label, _), v in zip(jobs, limbs.decode(FR, vals.movedim(0, 1))):
+                evals[label] = int(v)
 
     for label in sorted(evals):
         tr.common_scalar(evals[label])
