@@ -58,6 +58,9 @@ PHASE_SECONDS: dict = {}
 # "(before)": the peak since the caller's last reset, up to the first phase;
 # so the largest value is the peak of the caller's span)
 PHASE_PEAK_BYTES: dict = {}
+# phase 3 of the last create_proof: "lookups" arguments counted on the
+# device over "table_rows" and "input_rows" rows in all (empty on a resume)
+LOOKUP_ROWS: dict = {}
 _PHASE = None          # (name, start time, profiler range) of the running phase
 # extended-coset elements a group of columns of the quotient transforms
 # together (8 columns of 2^23 at k = 20: 2 GiB a copy; every column of a
@@ -599,6 +602,38 @@ def _random_mont(rng: np.random.Generator, shape, device) -> torch.Tensor:
     return limbs.to_mont(FR, limbs.to_device(words, device))
 
 
+def lookup_multiplicities(name: str, t: torch.Tensor, fs: list, a: int,
+                          n: int) -> torch.Tensor:
+    """A lookup argument's m on the device of its columns: (n,) int64, at
+    each table row the number of input rows [:a] whose value that row is
+    the lowest-indexed table row [:a] to hold (rows a.. count nothing).
+
+    t, fs: the compressed table and input columns, (8, n) Montgomery. Each
+    row's raw words become 4 int64 keys (word pairs; any consistent total
+    order matches), and the table rows, then every input's, are sorted by
+    four stable passes, least significant key first: each run of equal
+    values starts with its table rows in row order, so its first element
+    is the table row the run's inputs count towards, or an input row where
+    the value is missing from the table. The missing count is the one
+    read back to the host."""
+    raw = limbs.from_mont(FR, torch.cat([c[:, :a] for c in [t, *fs]], dim=1))
+    keys = (raw[1::2].to(torch.int64) << 32) | (raw[0::2].to(torch.int64) & 0xFFFFFFFF)
+    perm = torch.sort(keys[3], stable=True).indices
+    for j in (2, 1, 0):
+        perm = perm[torch.sort(keys[j][perm], stable=True).indices]
+    ks = keys[:, perm]
+    pos = torch.arange(perm.numel(), device=perm.device)
+    start = torch.ones_like(perm, dtype=torch.bool)
+    start[1:] = (ks[:, 1:] != ks[:, :-1]).any(0)
+    head = perm[torch.cummax(torch.where(start, pos, 0), 0).values]
+    is_input = perm >= a
+    missing = int((is_input & (head >= a)).sum())
+    if missing:
+        raise ValueError(f"lookup '{name}': {missing} input values not in table")
+    return torch.zeros(n, dtype=torch.int64, device=perm.device).index_add_(
+        0, head, is_input.to(torch.int64))
+
+
 def create_proof(pk: ProvingKey, srs: SRS, asg: Assignment,
                  transcript: Transcript | None = None,
                  seed: int | None = None,
@@ -616,6 +651,7 @@ def create_proof(pk: ProvingKey, srs: SRS, asg: Assignment,
     _span("done", dev)                 # a phase left open by a prove that raised
     PHASE_SECONDS.clear()
     PHASE_PEAK_BYTES.clear()
+    LOOKUP_ROWS.clear()
 
     ckpt_root = checkpoint_dir or _os.environ.get("EZKL_TPU_CKPT_DIR")
     if ckpt_root and seed is None and _os.environ.get("EZKL_TPU_DET_SEED") is None:
@@ -690,26 +726,12 @@ def create_proof(pk: ProvingKey, srs: SRS, asg: Assignment,
             advice_l, fixed_l, instance_l, theta_dev, *ch_dev)
         m_all = []
         for lk, fs, t in zip(cs.lookups, fs_all, t_all):
-            # multiplicity counting: pack field elements into structured u64
-            # rows, sorted-match inputs against the table, count per
-            # first-occurrence table row
-            t_pack = limbs.pack_rows(limbs.from_mont(FR, t))[:a]
-            order = np.argsort(t_pack, kind="stable")
-            t_sorted = t_pack[order]
-            f_all = np.concatenate([limbs.pack_rows(limbs.from_mont(FR, f))[:a] for f in fs])
-            pos = np.searchsorted(t_sorted, f_all)
-            pos_c = np.minimum(pos, t_sorted.size - 1)
-            ok = t_sorted[pos_c] == f_all
-            if not ok.all():
-                raise ValueError(
-                    f"lookup '{lk.name}': {int((~ok).sum())} input values not in table")
-            run_start = np.r_[True, t_sorted[1:] != t_sorted[:-1]]
-            run_first = np.maximum.accumulate(
-                np.where(run_start, np.arange(t_sorted.size), 0))
-            rows_for_f = order[run_first[pos_c]]
-            m_host = np.bincount(rows_for_f, minlength=n).astype(np.int64)
-            m_dev = limbs.to_mont(FR, limbs.to_device(limbs.encode_i64(FR, m_host), dev))
-            m_all.append(blind_tail(m_dev))
+            m = lookup_multiplicities(lk.name, t, fs, a, n)
+            m_raw = limbs.zeros((n,), dev)          # a count is its two low words
+            m_raw[:2] = m.view(torch.int32).view(n, 2).T
+            m_all.append(blind_tail(limbs.to_mont(FR, m_raw)))
+        LOOKUP_ROWS.update(lookups=len(cs.lookups), table_rows=a * len(cs.lookups),
+                           input_rows=a * sum(len(fs) for fs in fs_all))
         m_comms = kzg.commit_many(srs, m_all)
         for cpt in m_comms:
             tr.common_point(cpt)
